@@ -1,0 +1,26 @@
+// Kernel A: elementwise Goldilocks inverse, 0 -> 0.
+//
+// Replaces ministark_tpu/ops/inv_pallas.py `_inv_fp_hybrid_kernel` (and its
+// plain `_inv_fp_kernel`), reached from fields/device.py `batch_inv`.
+//
+// Bound on the card: arithmetic.  Each element costs one Fermat chain,
+// a^(p-2) by square-and-multiply (~64 squarings + ~63 multiplies of 64-bit
+// Goldilocks products), against 16 bytes of traffic.  Design: one thread per
+// element in a grid-stride loop, so the chain's latency hides behind many
+// resident warps; the TPU kernel's K-group Montgomery trick (one shared
+// chain per K elements) is left for a later change.
+#include "goldilocks.cuh"
+#include "launch.cuh"
+
+__global__ void inv_fp_kernel(const uint64_t* __restrict__ in,
+                              uint64_t* __restrict__ out, int64_t n) {
+    for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+         i += (int64_t)gridDim.x * blockDim.x)
+        out[i] = gl_inv(in[i]);
+}
+
+MS_API int ms_inv_fp(const uint64_t* in, uint64_t* out, int64_t n,
+                     cudaStream_t stream) {
+    if (n > 0) inv_fp_kernel<<<ms_blocks(n, 256), 256, 0, stream>>>(in, out, n);
+    return ms_last_error();
+}

@@ -1,0 +1,295 @@
+"""FRI commit/fold/query, Fp codewords (reference: src/fri.rs; mirrors
+``ministark_tpu.fri``).
+
+Protocol facts replicated exactly (they affect proof bytes):
+
+* folding uses PLAIN (offset-1) domains regardless of the LDE coset;
+* after each iNTT the coefficients are scaled by the folding factor N;
+* evaluations are committed in bit-reversed order, chunked into rows of N;
+* query positions live in bit-reversed space and fold as p -> p // N;
+* the remainder is the iNTT of the last layer; coefficients above
+  size/blowup must be zero and are not sent.
+
+The prover runs one layer at a time with the host coin between layers:
+NTTs through kernels B and C, the fold in plain PyTorch, row hashes and
+tree levels through kernel D.  The verifier half is exact host scalar math.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from . import merkle
+from .fields import device as fd
+from .fields.scalar import Fp, P, get_root_of_unity
+from .merkle import MerkleView
+from .ntt import Domain, bit_reverse_index, permute_bitrev
+from .ops import sha256 as ksha
+
+
+@dataclass(frozen=True)
+class FriOptions:
+    folding_factor: int
+    max_remainder_coeffs: int
+    blowup_factor: int
+
+    def num_layers(self, domain_size: int) -> int:
+        n, layers = domain_size, 0
+        while n > self.max_remainder_coeffs * self.blowup_factor:
+            n //= self.folding_factor
+            layers += 1
+        return layers
+
+
+@dataclass
+class LayerProof:
+    flattened_rows: list  # Fq values (row-major, N per row)
+    merkle_proof: MerkleView
+    commitment: bytes
+
+    def serialize(self, w, fq):
+        w.field_vec(self.flattened_rows)
+        self.merkle_proof.serialize(w)
+        w.digest(self.commitment)
+
+    @staticmethod
+    def deserialize(r, fq) -> "LayerProof":
+        rows = r.field_vec(fq)
+        proof = MerkleView.deserialize(r)
+        return LayerProof(rows, proof, r.digest())
+
+
+@dataclass
+class FriProof:
+    layers: list  # [LayerProof]
+    remainder_coeffs: list  # [Fq]
+
+    def serialize(self, w, fq):
+        w.vec(self.layers, lambda w2, l: l.serialize(w2, fq))
+        w.field_vec(self.remainder_coeffs)
+
+    @staticmethod
+    def deserialize(r, fq) -> "FriProof":
+        layers = r.vec(lambda r2: LayerProof.deserialize(r2, fq))
+        return FriProof(layers, r.field_vec(fq))
+
+
+class VerificationError(Exception):
+    pass
+
+
+# ---------------------------------------------------------------------------
+# prover
+# ---------------------------------------------------------------------------
+
+class _Layer:
+    """A committed layer: its Merkle tree and its (n/N, N) rows, both on
+    the device until decommit."""
+
+    def __init__(self, tree, rows: torch.Tensor):
+        self.tree = tree
+        self.rows = rows
+
+
+class FriProver:
+    """Builds FRI layers from the DEEP composition LDE ((n,) natural order)."""
+
+    def __init__(self, options: FriOptions):
+        self.options = options
+        self.layers: list[_Layer] = []
+        self.remainder_coeffs: list = []
+
+    def build_layers(self, channel, evals: torch.Tensor):
+        assert not self.layers
+        n = evals.shape[-1]
+        N = self.options.folding_factor
+        for _ in range(self.options.num_layers(n)):
+            evals = self._build_layer(channel, evals, n, N)
+            n //= N
+        self._set_remainder(channel, evals, n)
+
+    def _build_layer(self, channel, evals, n: int, N: int):
+        rows = permute_bitrev(evals).reshape(n // N, N)
+        tree = merkle.CommittedMerkleTree.from_leaf_digests(
+            ksha.hash_rows(rows))
+        channel.commit_fri_layer(tree.root())
+        self.layers.append(_Layer(tree, rows))
+        alpha = channel.draw_fri_alpha()
+        return fold_evals(evals, n, N, alpha)
+
+    def _set_remainder(self, channel, evals, n: int):
+        vals = [Fp(v) for v in fd.to_ints(Domain(n).ifft(evals))]
+        max_coeffs = n // self.options.blowup_factor
+        remainder, zero_tail = vals[:max_coeffs], vals[max_coeffs:]
+        assert all(v.is_zero() for v in zero_tail), "remainder degree too high"
+        channel.commit_remainder(remainder)
+        self.remainder_coeffs = remainder
+
+    def into_proof(self, positions: list[int]) -> FriProof:
+        N = self.options.folding_factor
+        proof_layers = []
+        pos = list(positions)
+        for layer in self.layers:
+            pos = fold_positions(pos, N)
+            idx = torch.tensor(pos, dtype=torch.int64,
+                               device=layer.rows.device)
+            flattened = [Fp(v) for v in
+                         fd.to_ints(layer.rows.index_select(0, idx))]
+            proof_layers.append(LayerProof(flattened, layer.tree.prove(pos),
+                                           layer.tree.root()))
+        return FriProof(proof_layers, self.remainder_coeffs)
+
+
+def fold_evals(evals: torch.Tensor, n: int, N: int, alpha: Fp) -> torch.Tensor:
+    """One degree-respecting projection: plain iNTT, fold coefficient chunks
+    by alpha powers, scale by N, plain NTT on the smaller domain."""
+    coeffs = Domain(n).ifft(evals).reshape(n // N, N)
+    acc = coeffs[:, 0]
+    apow = alpha.v
+    for j in range(1, N):
+        acc = fd.add(acc, fd.mul(coeffs[:, j], apow))
+        apow = apow * alpha.v % P
+    return Domain(n // N).fft(fd.mul(acc, N))
+
+
+def fold_positions(positions: list[int], N: int) -> list[int]:
+    out = []
+    for p in positions:
+        q = p // N
+        if not out or out[-1] != q:
+            out.append(q)
+    return out
+
+
+def get_query_values(rows: list, positions: list[int], folded_positions: list[int], N: int):
+    lookup = {fp: i for i, fp in enumerate(folded_positions)}
+    return [rows[lookup[p // N]][p % N] for p in positions]
+
+
+# ---------------------------------------------------------------------------
+# verifier (host scalar)
+# ---------------------------------------------------------------------------
+
+class FriVerifier:
+    def __init__(self, public_coin, options: FriOptions, proof: FriProof,
+                 max_poly_degree: int):
+        self.options = options
+        self.proof = proof
+        domain_size = _next_pow2(max_poly_degree + 1) * options.blowup_factor
+        self.domain_size = domain_size
+        self.domain_generator = get_root_of_unity(domain_size).v
+
+        self.layer_alphas = []
+        self.layer_commitments = []
+        codeword_len = domain_size
+        N = options.folding_factor
+        for i, layer in enumerate(proof.layers):
+            public_coin.reseed_with_digest(layer.commitment)
+            self.layer_alphas.append(public_coin.draw())
+            self.layer_commitments.append(layer.commitment)
+            if i != len(proof.layers) - 1 and codeword_len % N != 0:
+                raise VerificationError(
+                    f"codeword length {codeword_len} not divisible by {N}")
+            codeword_len //= N
+        public_coin.reseed_with_field_element_vector(proof.remainder_coeffs)
+
+    def verify(self, positions: list[int], evaluations: list) -> None:
+        if len(positions) != len(evaluations):
+            raise VerificationError("positions/evaluations length mismatch")
+        N = self.options.folding_factor
+        domain_size = self.domain_size
+        g = self.domain_generator
+        positions = list(positions)
+        evaluations = list(evaluations)
+
+        num_layers = self.options.num_layers(domain_size)
+        if len(self.proof.layers) != num_layers:
+            raise VerificationError(
+                f"expected {num_layers} FRI layers, got {len(self.proof.layers)}")
+        for i in range(num_layers):
+            folded = fold_positions(positions, N)
+            alpha = self.layer_alphas[i]
+            commitment = self.layer_commitments[i]
+            layer = self.proof.layers[i]
+            rows = [layer.flattened_rows[k * N:(k + 1) * N]
+                    for k in range(len(layer.flattened_rows) // N)]
+            if len(rows) != len(folded):
+                raise VerificationError(f"row count mismatch in layer {i}")
+
+            try:
+                merkle.verify_rows(commitment, folded, rows,
+                                   layer.merkle_proof)
+            except merkle.InvalidProof as e:
+                raise VerificationError(f"layer {i} commitment invalid") from e
+
+            query_values = get_query_values(rows, positions, folded, N)
+            if evaluations != query_values:
+                raise VerificationError(
+                    f"degree-respecting projection invalid in layer {i}")
+
+            # next-layer evals: per coset, iNTT (on coset g^bitrev(pos) of the
+            # plain folding domain), coefficients *N, Horner at alpha
+            offsets = [pow(g, bit_reverse_index(domain_size // N, p), P)
+                       for p in folded]
+            from . import native
+            triples = native.fri_fold_rows(
+                layer.flattened_rows[:len(rows) * N], N, offsets,
+                get_root_of_unity(N).v, alpha)
+            if triples is not None:
+                evaluations = [Fp(t[0]) for t in triples]
+            else:
+                evaluations = []
+                for row, offset in zip(rows, offsets):
+                    chunk = [row[bit_reverse_index(N, j)] for j in range(N)]
+                    coeffs = _small_coset_ifft(chunk, N, offset)
+                    acc = _fq_zero(chunk[0])
+                    for c in reversed(coeffs):
+                        acc = acc * alpha + c * N
+                    evaluations.append(acc)
+            positions = folded
+            g = pow(g, N, P)
+            domain_size //= N
+
+        self._verify_remainder(positions, evaluations, g, domain_size)
+
+    def _verify_remainder(self, positions, evaluations, g, domain_size):
+        coeffs = list(self.proof.remainder_coeffs)
+        while coeffs and coeffs[-1].is_zero():
+            coeffs.pop()
+        expected_degree = domain_size // self.options.blowup_factor - 1
+        if len(coeffs) - 1 > expected_degree:
+            raise VerificationError(
+                f"remainder is not a degree {expected_degree} polynomial")
+        for p, e in zip(positions, evaluations):
+            x = Fp(pow(g, bit_reverse_index(domain_size, p), P))
+            acc = _fq_zero(e)
+            for c in reversed(self.proof.remainder_coeffs):
+                acc = acc * x + c
+            if acc != e:
+                raise VerificationError("remainder mismatch")
+
+
+def _small_coset_ifft(values: list, N: int, offset: int):
+    """Naive size-N inverse NTT over coset {offset * w^i} (N <= 16)."""
+    w = get_root_of_unity(N).v
+    n_inv = pow(N, P - 2, P)
+    off_inv = pow(offset, P - 2, P)
+    coeffs = []
+    for k in range(N):
+        acc = _fq_zero(values[0])
+        for i, v in enumerate(values):
+            wexp = pow(w, (N - (i * k) % N) % N, P)  # w^{-ik}
+            acc = acc + v * Fp(wexp)
+        coeffs.append(acc * Fp(n_inv) * Fp(pow(off_inv, k, P)))
+    return coeffs
+
+
+def _fq_zero(like):
+    return type(like).zero()
+
+
+def _next_pow2(v: int) -> int:
+    return 1 << (v - 1).bit_length() if v > 1 else 1
+

@@ -1,0 +1,124 @@
+"""Fibonacci-chain AIR over Goldilocks (reference: examples/fib/main.rs;
+mirrors ``ministark_tpu.models.fib``).
+
+8 columns; each row holds 8 successive products of the chain
+v_{k} = v_{k-2} * v_{k-1} starting 1, 2.  Constraint classes exercised:
+boundary (divide by (x - x_0)), transition (multiply by
+(x - x_last)/(x^n - 1)), terminal (divide by (x - x_last)).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .. import serde
+from ..air import Hints
+from ..constraints import Constraint, constant, curr, hint, next, x
+from ..fields.scalar import Fp, P
+from ..matrix import Matrix
+from ..ntt import Domain
+from ..stark import Stark, Trace
+
+NUM_COLS = 8
+CLAIMED_NTH_FIB_NUM = 0  # hint index
+
+
+class FibTrace(Trace):
+    def __init__(self, matrix: Matrix):
+        self.matrix = matrix
+
+    def base_columns(self) -> Matrix:
+        return self.matrix
+
+    def last_value(self) -> Fp:
+        return Fp(int(self.matrix.values[7, -1]) % (1 << 64))
+
+
+class FibAirConfig:
+    NUM_BASE_COLUMNS = NUM_COLS
+    NUM_EXTENSION_COLUMNS = 0
+    fp_type = Fp
+    fq_type = Fp
+
+    @staticmethod
+    def gen_hints(trace_len, claimed_nth_fib_number: Fp, challenges) -> Hints:
+        return Hints.new([(CLAIMED_NTH_FIB_NUM, claimed_nth_fib_number)])
+
+    @staticmethod
+    def constraints(trace_len: int) -> list[Constraint]:
+        dom = Domain(trace_len)
+        first_x = constant(dom.element(0))       # == 1
+        last_x = constant(dom.element(trace_len - 1))  # == g^{-1}
+        one = constant(Fp(1))
+
+        # first-row values: v0=1, v1=2, v_k = v_{k-2} * v_{k-1}
+        v = [Fp(1), Fp(2)]
+        for k in range(2, NUM_COLS):
+            v.append(v[k - 2] * v[k - 1])
+
+        boundary = [
+            (curr(i) - constant(v[i])) / (x() - first_x) for i in range(NUM_COLS)
+        ]
+
+        transition_core = [
+            next(0) - curr(6) * curr(7),
+            next(1) - curr(7) * next(0),
+            next(2) - next(0) * next(1),
+            next(3) - next(1) * next(2),
+            next(4) - next(2) * next(3),
+            next(5) - next(3) * next(4),
+            next(6) - next(4) * next(5),
+            next(7) - next(5) * next(6),
+        ]
+        transition = [
+            c * ((x() - last_x) / (x().pow(trace_len) - one)) for c in transition_core
+        ]
+
+        terminal = [(curr(7) - hint(CLAIMED_NTH_FIB_NUM)) / (x() - last_x)]
+
+        return [Constraint(c) for c in boundary + terminal + transition]
+
+
+def _gen_rows(num_rows: int) -> np.ndarray:
+    """(num_rows, 8) u64 chain values; native C++ when available (the chain
+    is sequential: ~10M field multiplies at 2^21 rows)."""
+    from .. import native
+
+    rows = np.zeros((num_rows, NUM_COLS), dtype=np.uint64)
+    if native.gen_fib_trace(rows.ctypes.data, num_rows):
+        return rows
+    v = [1, 2]
+    for k in range(2, NUM_COLS):
+        v.append(v[k - 2] * v[k - 1] % P)
+    for r in range(num_rows):
+        rows[r] = v
+        v0 = v[6] * v[7] % P
+        v1 = v[7] * v0 % P
+        v = [v0, v1]
+        for k in range(2, NUM_COLS):
+            v.append(v[k - 2] * v[k - 1] % P)
+    return rows
+
+
+def gen_trace(n: int, device="cpu") -> FibTrace:
+    """n total values (n/8 rows), as a Matrix on `device`."""
+    assert n & (n - 1) == 0 and n > 8
+    return FibTrace(Matrix.from_columns_np(_gen_rows(n // NUM_COLS).T, device))
+
+
+class FibClaim(Stark):
+    air_config = FibAirConfig
+    fp = Fp
+    fq = Fp
+
+    def __init__(self, claimed_nth_fib_number: Fp):
+        self.claim = claimed_nth_fib_number
+
+    def get_public_inputs(self) -> Fp:
+        return self.claim
+
+    def generate_trace(self, witness: FibTrace) -> FibTrace:
+        return witness
+
+    def serialize_public_inputs(self, w: serde.Writer):
+        w.field(self.claim)

@@ -1,0 +1,95 @@
+"""Batched column NTT: wrapper for kernel B (csrc/ntt.cu) beside its plain
+PyTorch version.
+
+Contract (both versions): x is (B, n1, C) int64; every column (b, :, c) is
+transformed along n1 with
+
+    load rows bit-reversed (times pre[row, c] when given),
+    all log2(n1) radix-2 DIT stages with tw[k] = w^k, k < n1/2,
+    output canonical (times tmat[row, c] when given),
+
+where `pre` and `tmat` are (n1, C) tables shared by every batch.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from ..fields import device as fd
+from . import build
+
+KERNEL = build.register(
+    "ntt", "ntt.cu",
+    replaces="ministark_tpu/ops/ntt_pallas.py:137 _col_ntt_kernel_unrolled")
+
+# Largest tile of one block: n1 rows x TC columns of u64 in shared memory.
+SMEM_ELEMS = 16384
+
+
+@functools.lru_cache(maxsize=32)
+def _bitrev_index(n: int, device: str) -> torch.Tensor:
+    log_n = n.bit_length() - 1
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    rev = torch.zeros_like(idx)
+    for b in range(log_n):
+        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    return rev
+
+
+def bitrev_index(n: int, device) -> torch.Tensor:
+    """i -> bitrev(i) over log2(n) bits, built and cached on `device`."""
+    return _bitrev_index(n, str(torch.device(device)))
+
+
+def col_ntt_plain(x, tw, pre=None, tmat=None):
+    B, n1, C = x.shape
+    if pre is not None:
+        x = fd.mul(x, pre)
+    x = x[:, bitrev_index(n1, x.device)]
+    log_n1 = n1.bit_length() - 1
+    for s in range(1, log_n1 + 1):
+        m = 1 << s
+        half = m >> 1
+        w = tw[::n1 // m][:half].reshape(1, 1, half, 1)
+        v = x.reshape(B, n1 // m, 2, half, C)
+        u, t = v[:, :, 0], fd.mul(v[:, :, 1], w)
+        x = torch.stack([fd.add(u, t), fd.sub(u, t)], dim=2).reshape(B, n1, C)
+    if tmat is not None:
+        x = fd.mul(x, tmat)
+    return x
+
+
+def col_ntt(x, tw, pre=None, tmat=None):
+    """See the module docstring.  CUDA tensors launch the kernel; CPU
+    tensors take the plain version."""
+    if not x.is_cuda:
+        return col_ntt_plain(x, tw, pre, tmat)
+    B, n1, C = x.shape
+    if n1 & (n1 - 1):
+        raise ValueError(f"column length {n1} is not a power of two")
+    if n1 > SMEM_ELEMS:
+        raise ValueError(f"column length {n1} exceeds the shared-memory "
+                         f"NTT kernel's limit {SMEM_ELEMS}")
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the kernel's grid")
+    x = x.contiguous()
+    build.check_cuda(x, name="x")
+    tw = tw.contiguous() if tw.numel() else torch.ones(1, dtype=torch.int64,
+                                                      device=x.device)
+    for name, t in (("tw", tw), ("pre", pre), ("tmat", tmat)):
+        if t is not None:
+            build.check_cuda(t, name=name)
+    for name, t in (("pre", pre), ("tmat", tmat)):
+        if t is not None and tuple(t.shape) != (n1, C):
+            raise ValueError(f"{name} must be ({n1}, {C}), got {tuple(t.shape)}")
+    # columns per block: a power of two that fits shared memory and divides C
+    TC = math.gcd(C, SMEM_ELEMS // n1)
+    y = torch.empty_like(x)
+    null = build.ptr_or_null
+    KERNEL.launch("ms_col_ntt", build.ptr(x), build.ptr(y), build.ptr(tw),
+                  null(pre), null(tmat), build.i64(B), build.i64(n1),
+                  build.i64(C), build.i64(n1.bit_length() - 1), build.i64(TC))
+    return y

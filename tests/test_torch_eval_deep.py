@@ -1,0 +1,128 @@
+"""Constraint evaluation (kernel E) and the DEEP sum (kernel F): the port's
+plain versions and the host build of the generated evaluator against the
+JAX package's numpy references, on inputs from a fixed seed.
+
+torch and the port are imported inside the tests, so collecting this file
+stays cheap in every pytest-xdist worker.
+"""
+
+import ctypes
+
+import numpy as np
+
+from ministark_tpu.air import Air as JaxAir
+from ministark_tpu.air import ProofOptions as JaxOptions
+from ministark_tpu.eval import eval_composition_numpy
+from ministark_tpu.fields import npfield as nf
+from ministark_tpu.fields.scalar import Fp as JaxFp
+from ministark_tpu.fields.scalar import P
+from ministark_tpu.models.fib import FibAirConfig as JaxFibConfig
+from ministark_tpu.ntt import Domain as JaxDomain
+
+TRACE_LEN = 128  # the 2^10-value fib trace
+OPTS = dict(num_queries=8, lde_blowup_factor=4, grinding_factor=2,
+            fri_folding_factor=4, fri_max_remainder_coeffs=16)
+
+
+def _inputs(seed):
+    """A random CE-domain trace, the CE points and transcript scalars."""
+    rng = np.random.default_rng(seed)
+    claim = JaxFp(int(rng.integers(0, P, dtype=np.uint64)))
+    jair = JaxAir(JaxFibConfig, TRACE_LEN, claim, JaxOptions(**OPTS))
+    n = TRACE_LEN * jair.ce_blowup_factor
+    dom = JaxDomain(n, 7)
+    x = np.array([dom.element(i).v for i in range(n)], dtype=np.uint64)
+    trace = rng.integers(0, P, size=(8, n), dtype=np.uint64)
+    coeffs = [int(v) for v in rng.integers(
+        0, P, size=jair.num_composition_constraint_coeffs(), dtype=np.uint64)]
+    return jair, x, trace, coeffs
+
+
+def _port_air(jair):
+    from ministark_tpu_torch.air import Air, ProofOptions
+    from ministark_tpu_torch.fields.scalar import Fp
+    from ministark_tpu_torch.models.fib import FibAirConfig
+
+    return Air(FibAirConfig, TRACE_LEN, Fp(jair.public_inputs.v),
+               ProofOptions(**OPTS))
+
+
+def test_eval_matches_eval_composition_numpy():
+    """The port's whole evaluation (denominator inverses through kernel A's
+    plain version, terms through kernel E's) equals the JAX package's eager
+    numpy evaluator on the fib AIR at 2^10 values."""
+    from ministark_tpu_torch import eval as teval
+    from ministark_tpu_torch.fields.convert import from_u64_numpy, to_u64_numpy
+    from ministark_tpu_torch.fields.scalar import Fp
+
+    jair, x, trace, coeffs = _inputs(41)
+    want = eval_composition_numpy(
+        jair, [JaxFp(c) for c in coeffs], [], jair.gen_hints([]),
+        nf.to_limbs(x), nf.to_limbs(trace), None)
+    want = nf.from_limbs(np.asarray(want[0]), np.asarray(want[1]))
+    air = _port_air(jair)
+    got = teval.eval_composition(
+        air, [Fp(c) for c in coeffs], [], air.gen_hints([]),
+        from_u64_numpy(x), from_u64_numpy(trace))
+    np.testing.assert_array_equal(to_u64_numpy(got), want)
+
+
+def test_generated_source_host_build_matches_plain():
+    """The CUDA source generated from the fib DAG, built as host C++ by g++,
+    equals the plain version point for point."""
+    import torch
+
+    from ministark_tpu_torch import eval as teval
+    from ministark_tpu_torch.fields.convert import from_u64_numpy
+    from ministark_tpu_torch.ops import build
+    from ministark_tpu_torch.ops import eval as keval
+
+    jair, x, trace, _ = _inputs(42)
+    air = _port_air(jair)
+    plan, source, _ = teval._plan_for(air)
+    assert "__global__" in source and "ms_eval_host" in source
+    n = x.shape[0]
+    rng = np.random.default_rng(43)
+    tx, tt = from_u64_numpy(x), from_u64_numpy(trace)
+    inv = from_u64_numpy(rng.integers(0, P, size=(len(plan.inv_keys), n),
+                                      dtype=np.uint64))
+    per = torch.zeros((0, n), dtype=torch.int64)
+    s = from_u64_numpy(rng.integers(0, P, size=len(plan.scalars),
+                                    dtype=np.uint64))
+    want = keval.eval_terms(plan, source, air.ce_blowup_factor, tt, tx, per,
+                            inv, s)
+    lib = build.build_host_library("eval_fib_check", source)
+    lib.ms_eval_host.restype = None
+    lib.ms_eval_host.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64]
+    out = torch.empty(n, dtype=torch.int64)
+    lib.ms_eval_host(*[t.data_ptr() for t in (tt, tx, per, inv, s, out)], n)
+    assert torch.equal(out, want)
+
+
+def test_deep_plain_matches_npfield_restatement():
+    """Kernel F's contract restated in npfield:
+    sum_t alpha_t (ood_t - T_t) inv_t, times (A + B x)."""
+    from ministark_tpu_torch.fields.convert import from_u64_numpy, to_u64_numpy
+    from ministark_tpu_torch.ops import deep as kdeep
+
+    rng = np.random.default_rng(51)
+    T, n = 17, 512
+    cols = rng.integers(0, P, size=(T, n), dtype=np.uint64)
+    invs = rng.integers(0, P, size=(3, n), dtype=np.uint64)
+    which = [t % 2 if t < T - 1 else 2 for t in range(T)]
+    s = rng.integers(0, P, size=2 * T + 2, dtype=np.uint64)
+    x = rng.integers(0, P, size=n, dtype=np.uint64)
+
+    acc = np.zeros(n, dtype=np.uint64)
+    for t in range(T):
+        term = nf.mul(nf.mul(nf.sub(np.full(n, s[2 * t], np.uint64), cols[t]),
+                             invs[which[t]]), np.full(n, s[2 * t + 1], np.uint64))
+        acc = nf.add(acc, term)
+    adj = nf.add(np.full(n, s[2 * T], np.uint64),
+                 nf.mul(np.full(n, s[2 * T + 1], np.uint64), x))
+    want = nf.mul(acc, adj)
+
+    got = kdeep.deep([from_u64_numpy(c) for c in cols],
+                     [from_u64_numpy(invs[w]) for w in which],
+                     from_u64_numpy(s), from_u64_numpy(x))
+    np.testing.assert_array_equal(to_u64_numpy(got), want)

@@ -1,0 +1,128 @@
+"""Each hand-written CUDA kernel against its plain PyTorch version on the
+card, at small and awkward shapes (the prove's own shapes are checked by
+chip_smoke.py).  Integer field math: equality is exact.
+
+These tests need an NVIDIA GPU and nvcc; without a card they skip.  Run
+them on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
+No JAX is imported here, so the file also runs where JAX is not installed.
+"""
+
+import shutil
+
+import numpy as np
+import pytest
+
+pytestmark = pytest.mark.cuda
+
+P = 0xFFFFFFFF00000001
+KERNELS = ["inv", "ntt", "transpose", "sha256", "eval", "deep"]
+
+
+@pytest.fixture
+def dev():
+    # no nvidia-smi means no card: skip before paying for the torch import
+    if shutil.which("nvidia-smi") is None:
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels run on the card only")
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels run on the card only")
+    return torch.device("cuda:0")
+
+
+def _rand(shape, seed):
+    from ministark_tpu_torch.fields.convert import from_u64_numpy
+
+    v = np.random.default_rng(seed).integers(0, P, size=shape, dtype=np.uint64)
+    return from_u64_numpy(v)
+
+
+def _same(torch, got, want):
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_kernel_matches_plain_on_card(dev, kernel):
+    import torch
+
+    from ministark_tpu_torch.ops import build
+
+    k = build.KERNELS.get(kernel)
+    before = k.launches if k is not None else 0
+    if kernel == "inv":
+        from ministark_tpu_torch.ops import inv as kinv
+
+        for n in (1, 100, 4097):
+            a = _rand(n, n).to(dev)
+            a[::3] = 0
+            _same(torch, kinv.inv_fp(a), kinv.inv_fp_plain(a))
+    elif kernel == "ntt":
+        from ministark_tpu_torch.ntt import Domain
+
+        for n, off, B in ((2, 7, 1), (16, 1, 3), (512, 7, 8), (1 << 13, 7, 2)):
+            d = Domain(n, off)
+            x = _rand((B, n), n)
+            got = d.ifft(d.fft(x.to(dev)))
+            _same(torch, got, x)
+            _same(torch, d.fft(x.to(dev)), d.fft(x))
+        from ministark_tpu_torch.fields.scalar import get_root_of_unity
+        from ministark_tpu_torch.ntt import powers
+        from ministark_tpu_torch.ops import ntt as kntt
+
+        # a column count that no power-of-two tile width divides evenly
+        tw = powers(get_root_of_unity(4096).v, 2048, "cpu")
+        x, pre = _rand((2, 4096, 6), 4), _rand((4096, 6), 5)
+        _same(torch, kntt.col_ntt(x.to(dev), tw.to(dev), pre=pre.to(dev)),
+              kntt.col_ntt_plain(x, tw, pre=pre))
+        with pytest.raises(ValueError):
+            kntt.col_ntt(torch.zeros((1, 1 << 15, 1), dtype=torch.int64,
+                                     device=dev),
+                         torch.ones(1 << 14, dtype=torch.int64, device=dev))
+    elif kernel == "transpose":
+        from ministark_tpu_torch.ops import transpose as ktr
+
+        for shape in ((1, 1, 1), (3, 40, 72), (2, 64, 32)):
+            x = _rand(shape, sum(shape)).to(dev)
+            _same(torch, ktr.transpose(x), ktr.transpose_plain(x))
+    elif kernel == "sha256":
+        from ministark_tpu_torch.ops import sha256 as ksha
+
+        for ncols, n in ((1, 5), (8, 300), (9, 64), (4, 16)):
+            m = _rand((ncols, n), ncols * n).to(dev)
+            _same(torch, ksha.hash_rows(m.T), ksha.hash_rows_plain(m.T))
+            rows = m.reshape(n, ncols)
+            _same(torch, ksha.hash_rows(rows), ksha.hash_rows_plain(rows))
+        d = torch.randint(0, 256, (200, 32), dtype=torch.uint8, device=dev)
+        _same(torch, ksha.merge(d[:100], d[100:]),
+              ksha.merge_plain(d[:100], d[100:]))
+    elif kernel == "eval":
+        from ministark_tpu_torch import eval as teval
+        from ministark_tpu_torch.air import Air, ProofOptions
+        from ministark_tpu_torch.fields.scalar import Fp
+        from ministark_tpu_torch.models.fib import FibAirConfig
+        from ministark_tpu_torch.ops import eval as keval
+
+        air = Air(FibAirConfig, 128, Fp(3), ProofOptions(8, 4, 2, 4, 16))
+        plan, source, _ = teval._plan_for(air)
+        n = air.ce_domain().size
+        args = [_rand((8, n), 1), air.ce_domain().elements("cpu"),
+                torch.zeros((0, n), dtype=torch.int64),
+                _rand((len(plan.inv_keys), n), 2), _rand(len(plan.scalars), 3)]
+        cb = air.ce_blowup_factor
+        _same(torch, keval.eval_terms(plan, source, cb,
+                                      *[a.to(dev) for a in args]),
+              keval.eval_terms_plain(plan, cb, *args))
+    elif kernel == "deep":
+        from ministark_tpu_torch.ops import deep as kdeep
+
+        T, n = 5, 777
+        cols = [_rand(n, t) for t in range(T)]
+        invs = [_rand(n, 10 + t) for t in range(T)]
+        s, x = _rand(2 * T + 2, 20), _rand(n, 21)
+        _same(torch, kdeep.deep([c.to(dev) for c in cols],
+                                [v.to(dev) for v in invs], s.to(dev),
+                                x.to(dev)),
+              kdeep.deep_plain(cols, invs, s, x))
+    assert build.KERNELS[kernel].launches > before
