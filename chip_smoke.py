@@ -3,24 +3,41 @@
 
     python3 chip_smoke.py
 
-Phases, any failure exits non-zero:
+Two main paths, each driven through the user's entry points: the fib prove
+(Fp) and the brainfuck prove (Fq3 extension field).  Phases, any failure
+exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build every hand-written kernel from ``ministark_tpu_torch/csrc`` (and
-     the constraint evaluator generated for the fib AIR) with nvcc;
-  3. run each kernel against its plain PyTorch version on the card at the
-     shapes of the 2^24-value prove: integer field math, so the tolerance
-     is exact equality; print both times;
-  4. prove fib at 2^10 values with the golden-fixture options: the bytes
-     must equal ``tests/golden/fib_2e10.proof`` and all six kernels must
-     have launched;
+  2. build every hand-written kernel from ``ministark_tpu_torch/csrc`` and
+     the constraint evaluators generated for the fib AIR (one source) and
+     the brainfuck AIR (one source per term group) with nvcc, one process
+     per source, all started together;
+  3. run each kernel against its plain PyTorch version on the card, at
+     the shapes of each prove that launches it: the six fib kernels at the
+     2^24-value fib prove's, the eight of the brainfuck path (the four Fq3
+     kernels and the ntt, transpose, sha256 and inv it shares with fib) at
+     the 2^20-row brainfuck prove's; integer field math, so the tolerance
+     is exact equality; print the kernel's time, the plain version's, the
+     bound (the least time the card could take) and, where one PyTorch
+     call computes the same function, its time;
+  4. prove fib at 2^10 values and brainfuck "++>+++[<+>-]<." with the
+     golden-fixture options: the bytes must equal ``tests/golden/`` and
+     every kernel of each path must have launched;
   5. prove fib at 2^24 values (2^21 rows x 8 columns) with bench.py's
-     options, cold then warm, with per-phase CUDA-event times and peak
-     device memory; the counts of launches are reset just before the warm
-     prove and read just after; the port's verifier must accept the proof
-     and reject it with one byte flipped;
-  6. print the kernel table as one JSON line, then the result line.
+     options, cold then warm;
+  6. prove ``programs/fibonacci.bf`` with its count cut from eleven to ten
+     numbers (2^20 rows) with the 96-bit options (19 queries, blowup 16,
+     grind 20, fold 16, remainder 16), cold then warm, after timing the VM
+     on the host;
+  7. prove ``programs/hello_world.bf`` with the same options, cold then
+     warm (bench.py's latency line);
+  8. print the card, the kernel table as one JSON line (one entry per
+     kernel and path, with that path's launches), then the result.
 
-It imports nothing of JAX and nothing of ``ministark_tpu``.
+In phases 5-7 the counts of launches are reset just before the warm prove
+and read just after, with per-phase CUDA-event times and peak device
+memory; the port's verifier must accept each proof (30 bits for fib, 96
+for brainfuck) and reject it with one byte flipped.  It imports nothing of
+JAX and nothing of ``ministark_tpu``.
 """
 
 from __future__ import annotations
@@ -33,7 +50,41 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(ROOT, "tests", "golden", "fib_2e10.proof")
+GOLDEN_FIB = os.path.join(ROOT, "tests", "golden", "fib_2e10.proof")
+GOLDEN_BF = os.path.join(ROOT, "tests", "golden", "brainfuck_2plus3.proof")
+PROGRAMS = os.path.join(ROOT, "programs")
+GOLDEN_BF_PROGRAM = "++>+++[<+>-]<."
+
+FIB, BF = "fib_2e24", "bf_fibonacci_2e20"  # the two main paths' proves
+FIB_PATH = ("inv", "ntt", "transpose", "sha256", "eval", "deep")
+BF_PATH = ("inv", "ntt", "transpose", "sha256", "inv_ext3", "sha256_ext3",
+           "eval_ext3", "deep_ext3")
+
+# The bound (bound_ms) is the larger of bytes over the memory rate and
+# 32-bit integer operations over the INT32 instruction rate, the peaks of
+# an H100 SXM: 3.35 TB/s; 64 INT32 lanes per SM (Hopper architecture white
+# paper) x 132 SMs x 1.98 GHz, the card's maximum SM clock as nvidia-smi
+# reports.
+MEM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# The operation model: 32-bit integer operations per field operation.  A
+# Goldilocks add or sub is a 64-bit add with carry and a conditional
+# correction (6); a product is four 32x32->64 products (8 instruction
+# slots) and about a dozen adds, compares and selects to reduce it (20).
+OPS_ADD = 6
+OPS_MUL = 20
+OPS_MUL3 = 6 * OPS_MUL + 17 * OPS_ADD       # Karatsuba with u^3 = 2
+# A batch of inverses needs no more work than Montgomery's trick: three
+# products per element and one Fermat chain a^(p-2) for the whole batch
+# (an addition chain of about 75 products), whatever a kernel does.
+OPS_INV = 3 * OPS_MUL
+OPS_INV_CHAIN = 75 * OPS_MUL
+# An Fq3 inverse by the norm map: the adjugate (6 products), the norm (3),
+# one batched Fp inverse, and the three products by it.
+OPS_INV3 = 12 * OPS_MUL + 8 * OPS_ADD + OPS_INV
+# SHA-256 counted in Hopper's three-input instructions (LOP3, IADD3) and
+# funnel shifts: 14 per round, 10 per scheduled word.
+OPS_SHA_BLOCK = 64 * 14 + 48 * 10
 
 
 def fail(msg: str) -> None:
@@ -47,6 +98,17 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least time in ms, what bounds it) for this many bytes and ops."""
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sha_blocks(message_bytes: int) -> int:
+    return (message_bytes + 9 + 63) // 64
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -63,6 +125,18 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_once(torch, fn):
+    """(fn(), its device time in ms) for a single run."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def max_abs_err(torch, a, b) -> float:
     """0 when equal; else the largest |a - b| over (some) differing entries,
     as unsigned 64-bit integers."""
@@ -77,14 +151,129 @@ def max_abs_err(torch, a, b) -> float:
     return float(max(abs(x % m - y % m) for x, y in zip(av, bv)))
 
 
-def compare_kernels(torch, dev, fib_air_big):
-    """Phase 3: each kernel against its plain version at the prove's shapes."""
-    from ministark_tpu_torch.fields import device as fd
-    from ministark_tpu_torch.fields.scalar import P
+def eval_ops_per_point(keval, plan) -> int:
+    """32-bit integer operations per CE point of the generated evaluator:
+    its DAG walked group by group with the same structural sharing, each
+    operation costed by its operands' kinds (Fp or Fq3)."""
+    count = [0]
+
+    def leaf_fn(leaf):
+        if isinstance(leaf, keval._InvInput):
+            return plan.inv_kind[leaf.key]
+        return keval.leaf_kind(leaf, plan.num_base, plan.fq_is_ext)
+
+    def op_fn(op, a, b, exp):
+        fq = "fq" in (a, b)
+        if op == "neg":
+            count[0] += OPS_ADD * (3 if a == "fq" else 1)
+            return a
+        if op == "pow":
+            m = OPS_MUL3 if a == "fq" else OPS_MUL
+            count[0] += m * (exp.bit_length() + bin(exp).count("1"))
+            return a
+        if op == "add":
+            count[0] += OPS_ADD * (3 if a == b == "fq" else 1)
+        elif a == b:
+            count[0] += OPS_MUL3 if fq else OPS_MUL
+        else:
+            count[0] += 3 * OPS_MUL
+        return "fq" if fq else "fp"
+
+    for start, stop in plan.groups:
+        outs = keval._walk(plan.terms[start:stop], leaf_fn, op_fn)
+        acc = "fq" if plan.fq_is_ext else "fp"
+        for o in outs:
+            op_fn("add", acc, o, None)
+    return count[0]
+
+
+class Checker:
+    """Each kernel against its plain version; collects the kernel table."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev = torch, dev
+        self.results = {}
+        self.g = torch.Generator(device=dev)
+        self.g.manual_seed(2024)
+
+    def rand(self, *shape):
+        from ministark_tpu_torch.fields import device as fd
+
+        v = self.torch.randint(-(1 << 63), (1 << 63) - 1, shape,
+                               generator=self.g, device=self.dev,
+                               dtype=self.torch.int64)
+        return fd.canonicalize(v)
+
+    def scalar_table(self, plan):
+        """Random field values, with the plan's Pow exponents in their
+        slots."""
+        s = self.rand(max(plan.num_slots, 1))
+        for what, e, _kind in plan.scalars:
+            if what == "exp":
+                s[plan.slot[("exp", e)]] = e
+        return s
+
+    def check(self, name, path, parts, nbytes, ops, reps=3, plain_reps=3):
+        """Kernel `name` against its plain version at `path`'s shapes.  Each
+        part makes its own inputs and returns (kernel, plain, library or
+        None), functions of no arguments; the parts' times add up, and one
+        part's inputs are freed before the next part's are made.
+        plain_reps=1 times the one comparison run of the plain version (for
+        plain versions that take seconds)."""
+        torch = self.torch
+        err = ms = plain_ms = 0.0
+        library_ms = None
+        for make in parts:
+            kernel, plain, library = make()
+            got = kernel()
+            if plain_reps == 1:
+                want, t_plain = timed_once(torch, plain)
+            else:
+                want = plain()
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(torch, got, want))
+            del got, want
+            ms += time_ms(torch, kernel, reps)
+            plain_ms += (t_plain if plain_reps == 1
+                         else time_ms(torch, plain, plain_reps))
+            if library is not None:
+                library_ms = (library_ms or 0.0) + time_ms(torch, library,
+                                                           reps)
+            del kernel, plain, library
+            torch.cuda.empty_cache()
+        bound_ms, bound_by = bound(nbytes, ops)
+        self.results[(name, path)] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+        lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
+        print(f"kernel {name} ({path}): max_abs_err={err} (tolerance 0) "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.3f} ms ({bound_by}){lib}", flush=True)
+        if err != 0:
+            fail(f"kernel {name} disagrees with its plain version on {path}")
+
+
+def part(kernel, plain, library=None):
+    """A one-part check over inputs that already exist."""
+    return [lambda: (kernel, plain, library)]
+
+
+def chunked(fn, x, step):
+    """fn over slices of `step` along axis 0, concatenated: the plain
+    versions are run so where a whole matrix's temporaries would not fit."""
+    import torch
+
+    return torch.cat([fn(x[i:i + step]) for i in range(0, x.shape[0], step)])
+
+
+def compare_fib_kernels(ck: Checker, fib_air_big):
+    """The six fib kernels at the 2^24-value prove's shapes."""
+    torch, dev = ck.torch, ck.dev
     from ministark_tpu_torch import eval as teval
-    from ministark_tpu_torch.ntt import (_split_n, _stage_table,
+    from ministark_tpu_torch.fields.scalar import P
+    from ministark_tpu_torch.ntt import (Domain, _split_n, _stage_table,
                                          _twiddle_matrix, powers)
-    from ministark_tpu_torch.ntt import Domain
     from ministark_tpu_torch.ops import deep as kdeep
     from ministark_tpu_torch.ops import eval as keval
     from ministark_tpu_torch.ops import inv as kinv
@@ -92,37 +281,20 @@ def compare_kernels(torch, dev, fib_air_big):
     from ministark_tpu_torch.ops import sha256 as ksha
     from ministark_tpu_torch.ops import transpose as ktr
 
-    g = torch.Generator(device=dev)
-    g.manual_seed(2024)
-
-    def rand(*shape):
-        v = torch.randint(-(1 << 63), (1 << 63) - 1, shape, generator=g,
-                          device=dev, dtype=torch.int64)
-        return fd.canonicalize(v)
-
+    rand = ck.rand
     cols = 8
     lde_n = fib_air_big.lde_domain().size
     ce_n = fib_air_big.ce_domain().size
     n1, n2 = _split_n(lde_n)
     lde = Domain(lde_n, 7)
-    results = {}
-
-    def check(name, kernel, plain, reps=3):
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        err = max_abs_err(torch, got, want)
-        ms = time_ms(torch, kernel, reps)
-        plain_ms = time_ms(torch, plain, reps)
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        print(f"kernel {name}: max_abs_err={err} (tolerance 0) kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-        if err != 0:
-            fail(f"kernel {name} disagrees with its plain version")
 
     # A: the OOD barycentric inverses, one LDE-sized vector (zeros included)
     a = rand(lde_n)
     a[::4096] = 0
-    check("inv", lambda: kinv.inv_fp(a), lambda: kinv.inv_fp_plain(a))
+    ck.check("inv", FIB, part(lambda: kinv.inv_fp(a),
+                              lambda: kinv.inv_fp_plain(a)),
+             16 * lde_n, lde_n * OPS_INV + OPS_INV_CHAIN)
+    del a
 
     # B: both column passes of the 8-column coset LDE
     x1 = rand(cols, n1, n2)
@@ -142,17 +314,25 @@ def compare_kernels(torch, dev, fib_air_big):
             kntt.col_ntt_plain(x1, tw1, pre=pre, tmat=tmat).reshape(-1),
             kntt.col_ntt_plain(x2, tw2, tmat=post).reshape(-1)])
 
-    check("ntt", ntt_kernel, ntt_plain, reps=2)
+    butterflies = cols * lde_n * (lde_n.bit_length() - 1) // 2
+    ck.check("ntt", FIB, part(ntt_kernel, ntt_plain),
+             8 * (4 * cols * lde_n + 3 * lde_n + n1 // 2 + n2 // 2),
+             butterflies * (OPS_MUL + 2 * OPS_ADD) + 3 * cols * lde_n * OPS_MUL,
+             reps=2, plain_reps=2)
 
-    # C: the six-step transpose of the same LDE
-    check("transpose", lambda: ktr.transpose(x1),
-          lambda: ktr.transpose_plain(x1))
+    # C: the six-step transpose of the same LDE; one torch call (a strided
+    # copy) computes the same function
+    ck.check("transpose", FIB,
+             part(lambda: ktr.transpose(x1), lambda: ktr.transpose_plain(x1),
+                  lambda: x1.transpose(-1, -2).contiguous()),
+             16 * cols * lde_n, 0)
+    del x1, x2, pre, tmat, post
 
     # D: LDE row digests (column-major view) and one tree level of merges
     m = rand(cols, lde_n)
-    left = torch.randint(0, 256, (lde_n // 2, 32), generator=g, device=dev,
+    left = torch.randint(0, 256, (lde_n // 2, 32), generator=ck.g, device=dev,
                          dtype=torch.int64).to(torch.uint8)
-    right = torch.randint(0, 256, (lde_n // 2, 32), generator=g, device=dev,
+    right = torch.randint(0, 256, (lde_n // 2, 32), generator=ck.g, device=dev,
                           dtype=torch.int64).to(torch.uint8)
 
     def sha_kernel():
@@ -162,19 +342,28 @@ def compare_kernels(torch, dev, fib_air_big):
         return torch.cat([ksha.hash_rows_plain(m.T),
                           ksha.merge_plain(left, right)])
 
-    check("sha256", sha_kernel, sha_plain, reps=2)
+    ck.check("sha256", FIB, part(sha_kernel, sha_plain),
+             8 * cols * lde_n + 32 * lde_n + 64 * (lde_n // 2) + 32 * (lde_n // 2),
+             (lde_n * sha_blocks(8 * cols) + lde_n // 2 * sha_blocks(64))
+             * OPS_SHA_BLOCK, reps=2, plain_reps=2)
+    del m, left, right
 
     # E: the fib AIR's generated evaluator over the CE domain
-    plan, source, _denoms = teval._plan_for(fib_air_big)
+    plan, sources, _denoms = teval._plan_for(fib_air_big)
     cb = fib_air_big.ce_blowup_factor
-    trace = rand(cols, ce_n)
-    xs = fib_air_big.ce_domain().elements(dev)
-    inv = rand(len(plan.inv_keys), ce_n)
-    per = torch.zeros((0, ce_n), dtype=torch.int64, device=dev)
-    s = rand(max(len(plan.scalars), 1))
-    check("eval",
-          lambda: keval.eval_terms(plan, source, cb, trace, xs, per, inv, s),
-          lambda: keval.eval_terms_plain(plan, cb, trace, xs, per, inv, s))
+    args = [rand(cols, ce_n), torch.zeros((0, 3, ce_n), dtype=torch.int64,
+                                          device=dev),
+            fib_air_big.ce_domain().elements(dev),
+            torch.zeros((0, ce_n), dtype=torch.int64, device=dev),
+            rand(len(plan.inv_keys), ce_n),
+            torch.zeros((0, 3, ce_n), dtype=torch.int64, device=dev),
+            ck.scalar_table(plan)]
+    ck.check("eval", FIB,
+             part(lambda: keval.eval_terms(plan, sources, cb, *args),
+                  lambda: keval.eval_terms_plain(plan, cb, *args)),
+             8 * ce_n * (cols + 1 + len(plan.inv_keys) + 1),
+             ce_n * eval_ops_per_point(keval, plan))
+    del args
 
     # F: the DEEP sum over the LDE: one term per trace argument (two
     # distinct OOD points) and per composition column (a third)
@@ -184,9 +373,296 @@ def compare_kernels(torch, dev, fib_air_big):
     rows = [dinvs[t % 2 if t < T - cb else 2] for t in range(T)]
     ds = rand(2 * T + 2)
     xl = lde.elements(dev)
-    check("deep", lambda: kdeep.deep(dcols, rows, ds, xl),
-          lambda: kdeep.deep_plain(dcols, rows, ds, xl))
-    return results
+    ck.check("deep", FIB, part(lambda: kdeep.deep(dcols, rows, ds, xl),
+                               lambda: kdeep.deep_plain(dcols, rows, ds, xl)),
+             8 * lde_n * (T + 3 + 2),
+             lde_n * (T * (2 * OPS_MUL + 2 * OPS_ADD) + 2 * OPS_MUL + OPS_ADD))
+
+
+def compare_bf_kernels(ck: Checker, bf_air_big):
+    """The eight kernels of the brainfuck path at the 2^20-row prove's
+    shapes (LDE and CE domain 2^24 points): the four Fq3 kernels, and the
+    ntt, transpose, sha256 and inv kernels it shares with the fib path."""
+    torch, dev = ck.torch, ck.dev
+    from ministark_tpu_torch import eval as teval
+    from ministark_tpu_torch.fields.scalar import P
+    from ministark_tpu_torch.ntt import (_split_n, _stage_table,
+                                         _twiddle_matrix, powers)
+    from ministark_tpu_torch.ops import deep as kdeep
+    from ministark_tpu_torch.ops import eval as keval
+    from ministark_tpu_torch.ops import inv as kinv
+    from ministark_tpu_torch.ops import ntt as kntt
+    from ministark_tpu_torch.ops import sha256 as ksha
+    from ministark_tpu_torch.ops import transpose as ktr
+
+    rand = ck.rand
+    lde = bf_air_big.lde_domain()
+    n = lde.size
+    ce_n = bf_air_big.ce_domain().size
+    nb = bf_air_big.config.NUM_BASE_COLUMNS
+    ne = bf_air_big.config.NUM_EXTENSION_COLUMNS
+    ncomp = bf_air_big.ce_blowup_factor
+    args = bf_air_big.trace_arguments()
+    offsets = sorted({off for _c, off in args})
+    npts = len(offsets) + 1  # distinct OOD points: one per offset, and z^m
+    chunk = 1 << 20
+    plan, sources, _denoms = teval._plan_for(bf_air_big)
+    n_fp = sum(1 for k in plan.inv_keys if plan.inv_kind[k] == "fp")
+
+    # A: the constraint evaluation's Fp denominators over the CE domain
+    d = rand(n_fp, ce_n)
+    d[..., ::4096] = 0
+    ck.check("inv", BF, part(lambda: kinv.inv_fp(d),
+                             lambda: kinv.inv_fp_plain(d)),
+             16 * n_fp * ce_n, n_fp * ce_n * OPS_INV + OPS_INV_CHAIN,
+             plain_reps=1)
+    del d
+
+    # B: both column passes of the three 2^24-point coset LDEs: the base
+    # trace (17 planes), the extension trace (9 Fq3 columns, 27 planes) and
+    # the composition trace (16 Fq3 columns, 48 planes); one part per
+    # matrix and pass, the plain version four planes at a time
+    widths = (nb, 3 * ne, 3 * ncomp)
+    n1, n2 = _split_n(n)
+    tw1 = _stage_table(pow(lde.group_gen, n2, P), n1, dev)
+    tw2 = _stage_table(pow(lde.group_gen, n1, P), n2, dev)
+    pre = powers(lde.offset, n, dev).reshape(n1, n2)
+    tmat = _twiddle_matrix(n, lde.group_gen, dev)
+
+    def ntt_part(planes, first):
+        def make():
+            if first:
+                x = rand(planes, n1, n2)
+                return (lambda: kntt.col_ntt(x, tw1, pre=pre, tmat=tmat),
+                        lambda: chunked(lambda c: kntt.col_ntt_plain(
+                            c, tw1, pre=pre, tmat=tmat), x, 4), None)
+            x = rand(planes, n2, n1)
+            return (lambda: kntt.col_ntt(x, tw2),
+                    lambda: chunked(lambda c: kntt.col_ntt_plain(c, tw2),
+                                    x, 4), None)
+        return make
+
+    ck.check("ntt", BF, [ntt_part(w, f) for w in widths for f in (1, 0)],
+             sum(8 * (4 * w * n + 2 * n + n1 // 2 + n2 // 2) for w in widths),
+             sum(w * n * (n.bit_length() - 1) // 2 * (OPS_MUL + 2 * OPS_ADD)
+                 + 2 * w * n * OPS_MUL for w in widths),
+             reps=2, plain_reps=1)
+    del pre, tmat
+
+    # C: the six-step transposes of the same three LDEs
+    def tr_part(planes):
+        def make():
+            x = rand(planes, n1, n2)
+            return (lambda: ktr.transpose(x), lambda: ktr.transpose_plain(x),
+                    lambda: x.transpose(-1, -2).contiguous())
+        return make
+
+    ck.check("transpose", BF, [tr_part(w) for w in widths],
+             sum(16 * w * n for w in widths), 0, reps=2, plain_reps=2)
+
+    # D: the base LDE's row digests (17 columns, column-major view) and one
+    # tree level of merges
+    def sha_rows():
+        m = rand(nb, n)
+        return (lambda: ksha.hash_rows(m.T),
+                lambda: chunked(ksha.hash_rows_plain, m.T, chunk), None)
+
+    def sha_merges():
+        left, right = (torch.randint(0, 256, (n // 2, 32), generator=ck.g,
+                                     device=dev, dtype=torch.int64)
+                       .to(torch.uint8) for _ in range(2))
+        return (lambda: ksha.merge(left, right),
+                lambda: torch.cat([ksha.merge_plain(left[i:i + chunk],
+                                                    right[i:i + chunk])
+                                   for i in range(0, n // 2, chunk)]), None)
+
+    ck.check("sha256", BF, [sha_rows, sha_merges],
+             8 * nb * n + 32 * n + 64 * (n // 2) + 32 * (n // 2),
+             (n * sha_blocks(8 * nb) + n // 2 * sha_blocks(64))
+             * OPS_SHA_BLOCK, reps=2, plain_reps=1)
+
+    # A (Fq3): the DEEP phase's barycentric inverses 1/(y - x), zeros
+    # included
+    a = rand(npts, 3, n)
+    a[..., ::4096] = 0
+    ck.check("inv_ext3", BF, part(lambda: kinv.inv_ext3(a),
+                                  lambda: kinv.inv_ext3_plain(a)),
+             2 * 24 * npts * n, npts * n * OPS_INV3 + OPS_INV_CHAIN,
+             plain_reps=1)
+    del a
+
+    # D (Fq3): the extension trace, the composition trace and FRI layer 0
+    # (rows of 16 Fq3 values)
+    fold = bf_air_big.options.fri_folding_factor
+    mats = [rand(ne, 3, n), rand(ncomp, 3, n), rand(fold, 3, n // fold)]
+
+    def sha_kernel():
+        return torch.cat([ksha.hash_rows_ext3(m) for m in mats])
+
+    def sha_plain():
+        out = []
+        for m in mats:
+            rows = ksha.ext3_rows(m)
+            out += [ksha.hash_rows_plain(rows[i:i + chunk])
+                    for i in range(0, rows.shape[0], chunk)]
+        return torch.cat(out)
+
+    ck.check("sha256_ext3", BF, part(sha_kernel, sha_plain),
+             sum(8 * m.numel() + 32 * m.shape[2] for m in mats),
+             sum(m.shape[2] * sha_blocks(24 * m.shape[0]) for m in mats)
+             * OPS_SHA_BLOCK, reps=2, plain_reps=1)
+    del mats
+
+    # E (Fq3): the brainfuck AIR's generated evaluator, one kernel per term
+    # group, over the 2^24-point CE domain
+    eargs = [rand(nb, ce_n), rand(ne, 3, ce_n),
+             bf_air_big.ce_domain().elements(dev),
+             torch.zeros((len(plan.periodic), ce_n), dtype=torch.int64,
+                         device=dev),
+             rand(n_fp, ce_n), rand(len(plan.inv_keys) - n_fp, 3, ce_n),
+             ck.scalar_table(plan)]
+    cb = bf_air_big.ce_blowup_factor
+    planes = nb + 3 * ne + 1 + len(plan.periodic) + n_fp + 3 * (
+        len(plan.inv_keys) - n_fp)
+    ck.check("eval_ext3", BF,
+             part(lambda: keval.eval_terms(plan, sources, cb, *eargs),
+                  lambda: torch.cat([
+                      keval.eval_terms_plain(
+                          plan, cb, *eargs,
+                          points=(i, min(i + chunk // 2, ce_n)))
+                      for i in range(0, ce_n, chunk // 2)], dim=-1)),
+             8 * ce_n * (planes + 3), ce_n * eval_ops_per_point(keval, plan),
+             plain_reps=1)
+    del eargs
+
+    # F (Fq3): the DEEP sum, one term per trace argument (base and
+    # extension columns) and per composition column, times (A + B x)
+    base, ext, comp = rand(nb, n), rand(ne, 3, n), rand(ncomp, 3, n)
+    invs = rand(npts, 3, n)
+    cols, rows = [], []
+    for col, off in args:
+        cols.append(base[col] if col < nb else ext[col - nb])
+        rows.append(invs[offsets.index(off)])
+    cols += [comp[k] for k in range(ncomp)]
+    rows += [invs[-1]] * ncomp
+    T = len(cols)
+    ds = rand(6 * T + 6)
+    xl = bf_air_big.lde_domain().elements(dev)
+    n_fp_terms = sum(1 for c in cols if c.ndim == 1)
+    term_ops = (2 * OPS_MUL3 + 4 * OPS_ADD) * n_fp_terms + (
+        2 * OPS_MUL3 + 6 * OPS_ADD) * (T - n_fp_terms)
+    ck.check("deep_ext3", BF,
+             part(lambda: kdeep.deep_ext3(cols, rows, ds, xl),
+                  lambda: kdeep.deep_ext3_plain(cols, rows, ds, xl)),
+             8 * n * (nb + 3 * ne + 3 * ncomp + 3 * npts + 1 + 3),
+             n * (term_ops + 3 * OPS_MUL + 3 * OPS_ADD + OPS_MUL3),
+             plain_reps=1)
+
+
+# ProofOptions(num_queries, lde_blowup_factor, grinding_factor,
+# fri_folding_factor, fri_max_remainder_coeffs)
+FIB_OPTS = (32, 4, 8, 8, 64)    # bench.py's fib options
+BF_OPTS = (19, 16, 20, 16, 16)  # brainfuck's 96-bit options
+
+
+def workload(name: str):
+    """One of the three proves this script drives (and
+    ``scripts/profile_prove.py`` profiles), made through the user's entry
+    points on the card:
+      "fib"    fib at 2^24 values (2^21 rows x 8 columns), FIB_OPTS;
+      "bf"     ``programs/fibonacci.bf`` with its count line cut from eleven
+               '+' to ten (2^20 rows), BF_OPTS;
+      "hello"  ``programs/hello_world.bf``, BF_OPTS.
+    Returns (claim, trace, options, info); info holds the host seconds that
+    made the trace and, for brainfuck, the rows and the program's output."""
+    import torch
+
+    from ministark_tpu_torch.air import ProofOptions
+    from ministark_tpu_torch.models.brainfuck import (BrainfuckClaim,
+                                                      BrainfuckTrace, simulate)
+    from ministark_tpu_torch.models.fib import FibClaim, gen_trace
+
+    if name == "fib":
+        t0 = time.perf_counter()
+        trace = gen_trace(1 << 24)
+        claim = FibClaim(trace.last_value())
+        torch.cuda.synchronize()
+        return claim, trace, ProofOptions(*FIB_OPTS), {
+            "trace_gen_s": time.perf_counter() - t0}
+    program = "fibonacci.bf" if name == "bf" else "hello_world.bf"
+    with open(os.path.join(PROGRAMS, program)) as f:
+        source = f.read()
+    if name == "bf":
+        lines = source.split("\n")
+        count = next(i for i, line in enumerate(lines) if line)
+        if lines[count] != "+" * 11:
+            fail(f"unexpected count line in programs/fibonacci.bf: "
+                 f"{lines[count]!r}")
+        lines[count] = "+" * 10
+        source = "\n".join(lines)
+    t0 = time.perf_counter()
+    tables, output = simulate(source)
+    vm_s = time.perf_counter() - t0
+    rows = tables["processor"].shape[0]
+    if name == "bf" and rows != 1 << 20:
+        fail(f"expected 2^20 rows, got {rows}")
+    t0 = time.perf_counter()
+    trace = BrainfuckTrace(tables)
+    torch.cuda.synchronize()
+    return BrainfuckClaim(source, b"", output), trace, ProofOptions(*BF_OPTS), {
+        "vm_s": vm_s, "trace_upload_s": time.perf_counter() - t0,
+        "rows": rows, "output": output}
+
+
+def reset_counts(build):
+    for k in build.KERNELS.values():
+        k.launches = 0
+
+
+def read_counts(build, path, what):
+    counts = {name: k.launches for name, k in build.KERNELS.items()}
+    missing = [k for k in path if counts[k] == 0]
+    if missing:
+        fail(f"kernels {missing} did not launch in {what}: {counts}")
+    return counts
+
+
+def prove_timed(torch, build, claim, opts, trace, path, what):
+    """Cold prove, then the warm prove with its counts of launches reset
+    just before and read just after, per-phase times and peak memory."""
+    t0 = time.perf_counter()
+    claim.prove(opts, trace)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    reset_counts(build)
+    torch.cuda.reset_peak_memory_stats()
+    phases: list = []
+    t0 = time.perf_counter()
+    proof = claim.prove(opts, trace, phases)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = read_counts(build, path, what)
+    return proof, {"cold_prove_s": cold_s, "warm_prove_s": warm_s,
+                   "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "phases": phases, "launches": launches}
+
+
+def verify_and_tamper(claim, data, fp, fq, bits, what):
+    from ministark_tpu_torch.proof import Proof
+    from ministark_tpu_torch.verifier import VerificationError
+
+    t0 = time.perf_counter()
+    claim.verify(Proof.from_bytes(data, fp, fq), bits)
+    verify_s = time.perf_counter() - t0
+    tampered = bytearray(data)
+    tampered[21] ^= 1  # first byte of the base trace commitment
+    try:
+        claim.verify(Proof.from_bytes(bytes(tampered), fp, fq), bits)
+    except VerificationError as e:
+        print(f"tampered {what} proof rejected: {e}", flush=True)
+    else:
+        fail(f"the verifier accepted a tampered {what} proof")
+    return verify_s
 
 
 def main() -> int:
@@ -196,19 +672,20 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     sys.path.insert(0, ROOT)
     try:
+        from ministark_tpu_torch import eval as teval
         from ministark_tpu_torch.air import Air, ProofOptions
-        from ministark_tpu_torch.fields.scalar import Fp
+        from ministark_tpu_torch.fields.scalar import Fp, Fq3
+        from ministark_tpu_torch.models.brainfuck import (
+            BrainfuckAirConfig, BrainfuckClaim, BrainfuckTrace, simulate)
         from ministark_tpu_torch.models.fib import (FibAirConfig, FibClaim,
                                                     gen_trace)
         from ministark_tpu_torch.ops import (build, deep, eval, inv, ntt,  # noqa: F401
                                             sha256, transpose)
-        from ministark_tpu_torch.proof import Proof
-        from ministark_tpu_torch.verifier import VerificationError
-        from ministark_tpu_torch import eval as teval
     except ImportError as e:
         fail(f"the port is not importable beside this script: {e}")
-    if not os.path.exists(GOLDEN):
-        fail(f"missing golden proof {GOLDEN}")
+    for path in (GOLDEN_FIB, GOLDEN_BF, PROGRAMS):
+        if not os.path.exists(path):
+            fail(f"missing {path}")
     for mod in ("jax", "ministark_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -219,92 +696,114 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
+    fib_golden_opts = ProofOptions(num_queries=8, lde_blowup_factor=4,
+                                   grinding_factor=2, fri_folding_factor=4,
+                                   fri_max_remainder_coeffs=16)
+    bf_golden_opts = ProofOptions(num_queries=9, lde_blowup_factor=16,
+                                  grinding_factor=0, fri_folding_factor=4,
+                                  fri_max_remainder_coeffs=16)
+
     # -- phase 2: build ------------------------------------------------------
-    golden_opts = ProofOptions(num_queries=8, lde_blowup_factor=4,
-                               grinding_factor=2, fri_folding_factor=4,
-                               fri_max_remainder_coeffs=16)
-    big_opts = ProofOptions(num_queries=32, lde_blowup_factor=4,
-                            grinding_factor=8, fri_folding_factor=8,
-                            fri_max_remainder_coeffs=64)
+    # The generated sources do not depend on the trace length (Pow
+    # exponents sit in the scalar table), so one AIR of each kind suffices.
     t0 = time.perf_counter()
-    sources = [teval._plan_for(Air(FibAirConfig, rows, Fp(0), o))[1]
-               for rows, o in ((1 << 7, golden_opts), (1 << 21, big_opts))]
-    jobs = [(k, None) for k in build.KERNELS.values() if k.source] + [
-        (build.KERNELS["eval"], s) for s in sources]
+    fib_air_big = Air(FibAirConfig, 1 << 21, Fp(0), ProofOptions(*FIB_OPTS))
+    bf_air_big = Air(BrainfuckAirConfig, 1 << 20,
+                     BrainfuckClaim("", b"", b""), ProofOptions(*BF_OPTS))
+    by_file = {}  # kernels that share a source file share its library
+    for k in build.KERNELS.values():
+        if k.source:
+            by_file.setdefault(k.source, k)
+    jobs = [(k, None) for k in by_file.values()]
+    jobs += [(build.KERNELS["eval"], s)
+             for s in teval._plan_for(fib_air_big)[1]]
+    jobs += [(build.KERNELS["eval_ext3"], s)
+             for s in teval._plan_for(bf_air_big)[1]]
     with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
         list(ex.map(lambda j: j[0].build(j[1]), jobs))
     print(f"build: {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     # -- phase 3: kernels against their plain versions -------------------------
-    big_air = Air(FibAirConfig, 1 << 21, Fp(0), big_opts)
-    results = compare_kernels(torch, dev, big_air)
+    ck = Checker(torch, dev)
+    compare_fib_kernels(ck, fib_air_big)
+    compare_bf_kernels(ck, bf_air_big)
+    torch.cuda.empty_cache()
 
-    # -- phase 4: the golden 2^10-value proof --------------------------------
-    for k in build.KERNELS.values():
-        k.launches = 0
-    trace = gen_trace(1 << 10, dev)
+    # -- phase 4: the golden proofs ------------------------------------------
+    reset_counts(build)
+    trace = gen_trace(1 << 10)
     claim = FibClaim(trace.last_value())
-    data = claim.prove(golden_opts, trace).to_bytes(Fp)
-    with open(GOLDEN, "rb") as f:
+    data = claim.prove(fib_golden_opts, trace).to_bytes(Fp)
+    with open(GOLDEN_FIB, "rb") as f:
         if data != f.read():
             fail("the 2^10-value proof differs from tests/golden/fib_2e10.proof")
-    small = {name: k.launches for name, k in build.KERNELS.items()}
-    print(f"golden 2^10 proof: byte-identical ({len(data)} bytes); "
-          f"launches {small}", flush=True)
-    if min(small.values()) == 0:
-        fail(f"a kernel did not launch in the 2^10 prove: {small}")
+    counts = read_counts(build, FIB_PATH, "the golden fib prove")
+    print(f"golden fib 2^10 proof: byte-identical ({len(data)} bytes); "
+          f"launches {counts}", flush=True)
 
-    # -- phase 5: the 2^24-value prove ---------------------------------------
-    t0 = time.perf_counter()
-    trace = gen_trace(1 << 24, dev)
-    claim = FibClaim(trace.last_value())
-    torch.cuda.synchronize()
-    trace_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    claim.prove(big_opts, trace)
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
+    reset_counts(build)
+    tables, output = simulate(GOLDEN_BF_PROGRAM)
+    claim = BrainfuckClaim(GOLDEN_BF_PROGRAM, b"", output)
+    data = claim.prove(bf_golden_opts, BrainfuckTrace(tables)).to_bytes(Fq3)
+    with open(GOLDEN_BF, "rb") as f:
+        if data != f.read():
+            fail("the brainfuck proof differs from "
+                 "tests/golden/brainfuck_2plus3.proof")
+    counts = read_counts(build, BF_PATH, "the golden brainfuck prove")
+    print(f"golden brainfuck proof: byte-identical ({len(data)} bytes); "
+          f"launches {counts}", flush=True)
 
-    for k in build.KERNELS.values():
-        k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    phases: list = []
-    t0 = time.perf_counter()
-    proof = claim.prove(big_opts, trace, phases)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in build.KERNELS.items()}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if min(launches.values()) == 0:
-        fail(f"a kernel did not launch in the 2^24 prove: {launches}")
-
+    # -- phase 5: the 2^24-value fib prove -------------------------------------
+    claim, trace, opts, info = workload("fib")
+    proof, fib = prove_timed(torch, build, claim, opts, trace, FIB_PATH,
+                             "the 2^24-value fib prove")
     data = proof.to_bytes(Fp)
-    t0 = time.perf_counter()
-    claim.verify(Proof.from_bytes(data, Fp, Fp), 30)
-    verify_s = time.perf_counter() - t0
-    tampered = bytearray(data)
-    tampered[21] ^= 1  # first byte of the base trace commitment
-    try:
-        claim.verify(Proof.from_bytes(bytes(tampered), Fp, Fp), 30)
-    except VerificationError as e:
-        print(f"tampered 2^24 proof rejected: {e}", flush=True)
-    else:
-        fail("the verifier accepted a tampered proof")
+    fib["verify_s"] = verify_and_tamper(claim, data, Fp, Fp, 30, "fib 2^24")
+    print(json.dumps({FIB: {"card": card, **info, "proof_bytes": len(data),
+                            **fib}}), flush=True)
+    del trace, claim, proof
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"fib_2e24": {
-        "card": card, "trace_gen_s": trace_s, "cold_prove_s": cold_s,
-        "warm_prove_s": warm_s, "verify_s": verify_s,
-        "proof_bytes": len(data), "peak_device_gib": peak_gib,
-        "phases": phases, "launches": launches}}), flush=True)
+    # -- phase 6: fibonacci.bf, ten numbers, 2^20 rows -------------------------
+    claim, trace, opts, info = workload("bf")
+    output = info.pop("output")
+    print(f"fibonacci.bf (10 numbers): VM {info['vm_s']:.3f} s on the host, "
+          f"{info['rows']} rows, output {output!r}", flush=True)
+    proof, bf = prove_timed(torch, build, claim, opts, trace, BF_PATH,
+                            "the 2^20-row brainfuck prove")
+    data = proof.to_bytes(Fq3)
+    bf["verify_s"] = verify_and_tamper(claim, data, Fp, Fq3, 96,
+                                       "brainfuck 2^20")
+    print(json.dumps({BF: {"card": card, **info, "proof_bytes": len(data),
+                           **bf}}), flush=True)
+    del trace, claim, proof
+    torch.cuda.empty_cache()
 
+    # -- phase 7: hello_world.bf ------------------------------------------------
+    claim, trace, opts, info = workload("hello")
+    del info["output"]
+    proof, hello = prove_timed(torch, build, claim, opts, trace, BF_PATH,
+                               "the hello_world prove")
+    hello["verify_s"] = verify_and_tamper(claim, proof.to_bytes(Fq3), Fp,
+                                          Fq3, 96, "hello_world")
+    print(json.dumps({"bf_hello_world": {"card": card, **info, **hello}}),
+          flush=True)
+
+    # one entry per kernel and path: its shapes, times and launches there
     kernels = []
-    for name, k in build.KERNELS.items():
-        src = (f"ministark_tpu_torch/csrc/{k.source}" if k.source
-               else "ministark_tpu_torch/ops/eval.py")
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": k.replaces, "launches": launches[name],
-                        **results[name]})
+    for path, names, counts in ((FIB, FIB_PATH, fib["launches"]),
+                                (BF, BF_PATH, bf["launches"])):
+        for name in names:
+            k = build.KERNELS[name]
+            src = (f"ministark_tpu_torch/csrc/{k.source}" if k.source
+                   else "ministark_tpu_torch/ops/eval.py")
+            kernels.append({"name": name, "route": "cuda", "source": src,
+                            "replaces": k.replaces, "path": path,
+                            "launches": counts[name],
+                            **ck.results[(name, path)]})
+    if {k["name"] for k in kernels} != set(build.KERNELS):
+        fail("a registered kernel is on neither path")
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,11 @@
 // scale before the first pass, the six-step twiddle matrix after it, and
 // the inverse transform's 1/n * offset^-i after the second pass.
 //
-// Bound on the card: memory traffic.  A transform of n points does
-// ~n/2 log2(n) Goldilocks multiplies against 16n bytes of device traffic for
-// each pass, which is a few operations per byte.  Design: a block owns TC
+// Bound on the card: integer operations, narrowly.  A transform of n points
+// does ~n/2 log2(n) Goldilocks multiplies against 16n bytes of device
+// traffic for each pass, a few operations per byte (chip_smoke.py's model:
+// 1.7 ms of operations against 0.6 ms of traffic for the 8-column
+// 2^23-point LDE).  Design: a block owns TC
 // contiguous columns for all n1 rows, so the data crosses device memory once
 // per pass, every stage runs in shared memory, and each row load is a
 // contiguous TC * 8-byte segment.  TC is chosen so the tile fills up to

@@ -2,7 +2,10 @@
 // Goldilocks rows and 64-byte Merkle merges.
 //
 // Replaces ministark_tpu/ops/sha256_pallas.py `_sha_kernel` (wrappers
-// `hash_rows_fp_lanes` and `merge_lanes`).
+// `hash_rows_fp_lanes` and `merge_lanes`), and through ops/sha256.py
+// `hash_rows_ext3` the wrapper `hash_rows_ext3_lanes` (sha256_pallas.py:171):
+// a (C, 3, n) Fq3 matrix read with row stride 1 and element stride n is a
+// row of 3C elements, each Fq3 value serialized as c0 || c1 || c2.
 //
 // Row digests follow hash.py `hash_elements`: the message is the row's
 // elements, 8 little-endian bytes each, in column order; SHA's big-endian
@@ -12,12 +15,12 @@
 // neighbouring addresses) and row-major FRI rows.  Digests are written as
 // their 32 standard bytes.
 //
-// Bound on the card: integer throughput (64 rounds of ~20 32-bit ops per
-// 64-byte block; a 64-byte row is 2 blocks, a merge 2 blocks of which the
-// second is constant padding).  Design: the message schedule is a rolling
-// 16-word window held in registers (fully unrolled), padding words are
-// generated in place instead of read, and each thread streams its message
-// straight from device memory.
+// Bound on the card: integer throughput (64 rounds of ~14 three-input
+// 32-bit instructions per 64-byte block; a 64-byte row is 2 blocks, a merge
+// 2 blocks of which the second is constant padding).  Design: the message
+// schedule is a rolling 16-word window held in registers (fully unrolled),
+// padding words are generated in place instead of read, and each thread
+// streams its message straight from device memory.
 #include "goldilocks.cuh"
 #include "launch.cuh"
 

@@ -1,11 +1,12 @@
-"""Constraint evaluation over the CE domain (Fp AIRs).
+"""Constraint evaluation over the CE domain (Fp and Fq3 AIRs).
 
 Mirrors ``ministark_tpu.eval``: every Div denominator is deduplicated
-structurally and batch-inverted once (kernel A on the card), then the
-composition sum is evaluated by the kernel generated from the AIR's DAG
-(``ops/eval.py``, kernel E).  Denominators, like the periodic columns, are
-evaluated with plain PyTorch field ops, as the JAX package leaves them to
-XLA.  Field arithmetic is exact, so the values equal the JAX package's.
+structurally and batch-inverted once (kernel A on the card: in Fp when the
+denominator is Fp, in Fq3 when it is Fq3), then the composition sum is
+evaluated by the kernels generated from the AIR's DAG (``ops/eval.py``,
+kernel E).  Denominators, like the periodic columns, are evaluated with
+plain PyTorch field ops, as the JAX package leaves them to XLA.  Field
+arithmetic is exact, so the values equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -58,39 +59,62 @@ def _top_sum_terms(expr):
     return terms
 
 
+def _fq_is_ext(air) -> bool:
+    return getattr(air.config, "fq_type", Fp) is Fq3
+
+
 def _scalar(v) -> int:
-    if isinstance(v, Fq3):
-        raise NotImplementedError("extension-field AIRs are not ported yet")
     return v.v if isinstance(v, Fp) else int(v)
 
 
+def _host_op(op, a, b, exp):
+    """A DAG operation on host scalars (Fp, or Fq3 when one operand is)."""
+    if op == "neg":
+        return -a
+    if op == "pow":
+        return a ** exp
+    if isinstance(a, Fq3) or isinstance(b, Fq3):
+        a, b = Fq3.from_base(a), Fq3.from_base(b)
+    return {"add": lambda: a + b, "mul": lambda: a * b,
+            "div": lambda: a / b}[op]()
+
+
 def evaluate_dag(expr, ctx):
-    """Plain PyTorch evaluation of a DAG over the CE domain.  Values are
-    Python ints (constants, folded exactly) or int64 tensors.  ctx: x,
-    trace (ncols, n), ce_blowup, trace_len, challenges, hints,
-    composition_coeffs."""
+    """Plain PyTorch evaluation of a DAG over the CE domain -> (kind,
+    tensor): (n,) for "fp", (3, n) for "fq".  Constant subtrees fold on the
+    host.  ctx: x, trace (nbase, n), ext (next, 3, n), ce_blowup, trace_len,
+    challenges, hints, composition_coeffs."""
     x = ctx["x"]
+    nb = ctx["trace"].shape[0]
 
     def leaf_value(leaf):
         if isinstance(leaf, X):
-            return x
+            return "fp", x
         if isinstance(leaf, Constant):
-            return _scalar(leaf.value)
+            return leaf.value
         if isinstance(leaf, Challenge):
-            return _scalar(ctx["challenges"][leaf.index])
+            return ctx["challenges"][leaf.index]
         if isinstance(leaf, Hint):
-            return _scalar(ctx["hints"][leaf.index])
+            return ctx["hints"][leaf.index]
         if isinstance(leaf, CompositionCoeff):
-            return _scalar(ctx["composition_coeffs"][leaf.index])
+            return ctx["composition_coeffs"][leaf.index]
         if isinstance(leaf, Trace):
-            shift = ctx["ce_blowup"] * leaf.offset
-            return torch.roll(ctx["trace"][leaf.column], -shift)
+            shift = -ctx["ce_blowup"] * leaf.offset
+            if leaf.column < nb:
+                return "fp", torch.roll(ctx["trace"][leaf.column], shift)
+            return "fq", torch.roll(ctx["ext"][leaf.column - nb], shift,
+                                    dims=-1)
         if isinstance(leaf, Periodic):
-            return periodic_values(leaf, x, ctx["trace_len"])
+            return "fp", periodic_values(leaf, x, ctx["trace_len"])
         raise TypeError(f"unknown leaf {leaf!r}")
 
-    def as_tensor(v):
-        return v if isinstance(v, torch.Tensor) else fd.full(x.shape, v, x.device)
+    def tagged(v):
+        if isinstance(v, tuple):
+            return v
+        if isinstance(v, Fq3):
+            return "fq", fd.ext3_scalar(v, x.device)
+        return "fp", torch.tensor(fd.to_i64(_scalar(v)), dtype=torch.int64,
+                                  device=x.device)
 
     memo = {}
     for node in expr.postorder_unique():
@@ -100,27 +124,19 @@ def evaluate_dag(expr, ctx):
             continue
         a = memo[id(node.a)]
         b = memo[id(node.b)] if node.op in ("add", "mul", "div") else None
-        const = not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor)
-        if const:
-            fa = Fp(a)
-            memo[nid] = {"neg": lambda: -fa,
-                         "pow": lambda: fa ** node.exp,
-                         "add": lambda: fa + Fp(b),
-                         "mul": lambda: fa * Fp(b),
-                         "div": lambda: fa / Fp(b)}[node.op]().v
-        elif node.op == "neg":
-            memo[nid] = fd.neg(a)
-        elif node.op == "pow":
-            memo[nid] = fd.pow_const(a, node.exp)
-        elif node.op == "add":
-            memo[nid] = fd.add(as_tensor(a), as_tensor(b))
-        elif node.op == "mul":
-            memo[nid] = fd.mul(as_tensor(a), as_tensor(b))
+        if not isinstance(a, tuple) and not isinstance(b, tuple):
+            memo[nid] = _host_op(node.op, a, b, node.exp)
         elif node.op == "div":
-            memo[nid] = fd.mul(as_tensor(a), fd.batch_inv(as_tensor(b)))
+            kind, v = tagged(b)
+            inv = fd.batch_inv(v) if kind == "fp" else fd.ext3_batch_inv(v)
+            memo[nid] = keval.tagged_op("mul", tagged(a), (kind, inv), None)
         else:
-            raise ValueError(node.op)
-    return as_tensor(memo[id(expr)])
+            memo[nid] = keval.tagged_op(node.op, tagged(a),
+                                        None if b is None else tagged(b),
+                                        node.exp)
+    kind, v = tagged(memo[id(expr)])
+    n = x.shape[0]
+    return kind, v.expand(*v.shape[:-1], n) if v.shape[-1:] != (n,) else v
 
 
 def periodic_values(leaf, x, trace_len: int):
@@ -137,42 +153,55 @@ _PLAN_CACHE: dict = {}
 
 
 def _plan_for(air):
-    """(plan, generated source, denominators) per AIR config and shape."""
+    """(plan, generated sources, denominators) per AIR config and shape."""
     cfg = air.config if isinstance(air.config, type) else type(air.config)
     key = (cfg.__qualname__, air.trace_len, air.ce_blowup_factor)
     if key not in _PLAN_CACHE:
         expr = air.composition_constraint.expr
+        nb, ext = air.config.NUM_BASE_COLUMNS, _fq_is_ext(air)
         raw_memo, key_memo, denom_by_key = {}, {}, {}
         for node in expr.postorder_unique():
             if node.op == "div":
                 k = repr(_structural_key(node.b, raw_memo))
                 key_memo[id(node.b)] = k
                 denom_by_key.setdefault(k, node.b)
-        plan = keval.build_plan(_top_sum_terms(expr), key_memo,
-                                air.config.NUM_BASE_COLUMNS)
-        source = keval.generate_source(plan, air.ce_blowup_factor)
-        _PLAN_CACHE[key] = (plan, source, denom_by_key)
+        inv_kind = {k: keval.expr_kind(d, nb, ext)
+                    for k, d in denom_by_key.items()}
+        plan = keval.build_plan(_top_sum_terms(expr), key_memo, nb, ext,
+                                inv_kind)
+        sources = keval.generate_sources(plan, air.ce_blowup_factor)
+        _PLAN_CACHE[key] = (plan, sources, denom_by_key)
     return _PLAN_CACHE[key]
 
 
-def eval_composition(air, composition_coeffs, challenges, hints, x, trace):
+def eval_composition(air, composition_coeffs, challenges, hints, x, trace,
+                     ext=None):
     """The air's composition constraint over the CE domain.
 
-    x: (n,) CE-domain points, natural order; trace: (ncols, n) CE-domain
-    base-trace values.  Returns the (n,) composition evaluations."""
-    if getattr(air.config, "fq_type", Fp) is not Fp:
-        raise NotImplementedError("extension-field AIRs are not ported yet")
-    plan, source, denom_by_key = _plan_for(air)
-    ctx = {"x": x, "trace": trace, "ce_blowup": air.ce_blowup_factor,
-           "trace_len": air.trace_len, "challenges": challenges,
-           "hints": hints, "composition_coeffs": composition_coeffs}
-    n = x.shape[0]
-    empty = torch.zeros((0, n), dtype=torch.int64, device=x.device)
-    inv = (torch.stack([fd.batch_inv(evaluate_dag(denom_by_key[k], ctx))
-                        for k in plan.inv_keys]) if plan.inv_keys else empty)
+    x: (n,) CE-domain points, natural order; trace: (nbase, n) CE-domain
+    base-trace values; ext: (next, 3, n) extension-trace values, or None.
+    Returns the (n,) composition evaluations of an Fp AIR, (3, n) of an
+    Fq3 one."""
+    plan, sources, denom_by_key = _plan_for(air)
+    n, dev = x.shape[0], x.device
+    if ext is None:
+        ext = torch.zeros((0, 3, n), dtype=torch.int64, device=dev)
+    ctx = {"x": x, "trace": trace, "ext": ext,
+           "ce_blowup": air.ce_blowup_factor, "trace_len": air.trace_len,
+           "challenges": challenges, "hints": hints,
+           "composition_coeffs": composition_coeffs}
+    invs = {"fp": [], "fq": []}
+    for k in plan.inv_keys:
+        kind, d = evaluate_dag(denom_by_key[k], ctx)
+        invs[kind].append(fd.batch_inv(d) if kind == "fp"
+                          else fd.ext3_batch_inv(d))
+    inv = (torch.stack(invs["fp"]) if invs["fp"]
+           else torch.zeros((0, n), dtype=torch.int64, device=dev))
+    inv3 = (torch.stack(invs["fq"]) if invs["fq"]
+            else torch.zeros((0, 3, n), dtype=torch.int64, device=dev))
     per = (torch.stack([periodic_values(p, x, air.trace_len)
-                        for p in plan.periodic]) if plan.periodic else empty)
-    s = keval.scalar_table(plan, challenges, hints, composition_coeffs,
-                           x.device)
-    return keval.eval_terms(plan, source, air.ce_blowup_factor, trace, x,
-                            per, inv, s)
+                        for p in plan.periodic]) if plan.periodic
+           else torch.zeros((0, n), dtype=torch.int64, device=dev))
+    s = keval.scalar_table(plan, challenges, hints, composition_coeffs, dev)
+    return keval.eval_terms(plan, sources, air.ce_blowup_factor, trace, ext,
+                            x, per, inv, inv3, s)

@@ -1,8 +1,13 @@
-"""Goldilocks field arithmetic on torch tensors (Fp only).
+"""Goldilocks field arithmetic on torch tensors: Fp and its cubic
+extension Fq3 = Fp[u]/(u^3 - 2).
 
 Representation: one element per ``torch.int64`` entry, holding the
 canonical value's u64 bit pattern (values >= 2^63 read as negative).  The
-CUDA kernels reinterpret the same storage as ``uint64_t``.
+CUDA kernels reinterpret the same storage as ``uint64_t``.  An Fq3 tensor
+carries its three components on the second-to-last axis: shape
+``(..., 3, n)``, so a matrix of C extension columns is ``(C, 3, n)`` and
+each component plane is contiguous.  Sums and differences of Fq3 tensors
+are the Fp ones, component by component.
 
 Torch has no unsigned 64-bit add, shift or compare on the CPU, so the
 arithmetic here is written with wrapping int64 ops, which are right bit for
@@ -154,3 +159,109 @@ def sum_mod(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
 def to_ints(a: torch.Tensor) -> list[int]:
     """Flat list of canonical Python ints."""
     return [v & 0xFFFFFFFFFFFFFFFF for v in a.reshape(-1).tolist()]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point puts host data on: the card unless the
+    caller names another.  Raises when the card is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: pass device='cpu' to run "
+                           "on the CPU")
+    return dev
+
+
+# -- cubic extension Fq3 = Fp[u]/(u^3 - 2), components on axis -2 ----------
+
+
+def _dbl(a: torch.Tensor) -> torch.Tensor:
+    return add(a, a)
+
+
+def ext3(c0, c1, c2) -> torch.Tensor:
+    return torch.stack([c0, c1, c2], dim=-2)
+
+
+def ext3_from_base(a: torch.Tensor) -> torch.Tensor:
+    z = torch.zeros_like(a)
+    return ext3(a, z, z)
+
+
+def ext3_table(values, device) -> torch.Tensor:
+    """Host Fq3 (or Fp) scalars as one flat tensor [c0, c1, c2, c0, ...],
+    in one copy to `device`."""
+    from .scalar import Fq3
+
+    flat = []
+    for v in values:
+        q = Fq3.from_base(v)
+        flat += [to_i64(q.c0.v), to_i64(q.c1.v), to_i64(q.c2.v)]
+    return torch.tensor(flat, dtype=I64, device=device)
+
+
+def ext3_scalar(v, device) -> torch.Tensor:
+    """An Fq3 (or Fp) host scalar as a (3, 1) tensor that broadcasts
+    against (..., 3, n)."""
+    return ext3_table([v], device).reshape(3, 1)
+
+
+def ext3_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Karatsuba: 6 base products (fields/npfield.py's schoolbook gives the
+    same value)."""
+    a0, a1, a2 = a[..., 0, :], a[..., 1, :], a[..., 2, :]
+    b0, b1, b2 = b[..., 0, :], b[..., 1, :], b[..., 2, :]
+    v0, v1, v2 = mul(a0, b0), mul(a1, b1), mul(a2, b2)
+    t0 = sub(sub(mul(add(a1, a2), add(b1, b2)), v1), v2)
+    t1 = sub(sub(mul(add(a0, a1), add(b0, b1)), v0), v1)
+    t2 = sub(sub(mul(add(a0, a2), add(b0, b2)), v0), v2)
+    return ext3(add(v0, _dbl(t0)), add(t1, _dbl(v2)), add(t2, v1))
+
+
+def ext3_mul_base(a: torch.Tensor, b) -> torch.Tensor:
+    """Fq3 times Fp: b (..., n) or a Python int scales every component."""
+    return mul(a, b.unsqueeze(-2) if isinstance(b, torch.Tensor) else b)
+
+
+def ext3_pow_const(a: torch.Tensor, e: int) -> torch.Tensor:
+    assert e >= 0
+    result = None
+    base = a
+    while e:
+        if e & 1:
+            result = base if result is None else ext3_mul(result, base)
+        e >>= 1
+        if e:
+            base = ext3_mul(base, base)
+    if result is None:
+        one = torch.zeros_like(a)
+        one[..., 0, :] = 1
+        return one
+    return result
+
+
+def ext3_inv(a: torch.Tensor) -> torch.Tensor:
+    """Norm-map inverse: with v the product of a's two conjugates,
+    a^-1 = v / N(a) and N(a) = a * v lies in Fp; 0 maps to 0."""
+    c0, c1, c2 = a[..., 0, :], a[..., 1, :], a[..., 2, :]
+    v0 = sub(mul(c0, c0), _dbl(mul(c1, c2)))
+    v1 = sub(_dbl(mul(c2, c2)), mul(c0, c1))
+    v2 = sub(mul(c1, c1), mul(c0, c2))
+    norm = add(mul(c0, v0), _dbl(add(mul(c2, v1), mul(c1, v2))))
+    return ext3_mul_base(ext3(v0, v1, v2), inv(norm))
+
+
+def ext3_batch_inv(a: torch.Tensor) -> torch.Tensor:
+    """Elementwise Fq3 inverse through the hand-written kernel on CUDA
+    tensors (its plain version, ``ext3_inv``, on CPU tensors)."""
+    from ..ops.inv import inv_ext3
+
+    return inv_ext3(a)
+
+
+def ext3_to_scalars(a: torch.Tensor) -> list:
+    """A (3, n) tensor -> n host Fq3 scalars."""
+    from .scalar import Fq3
+
+    c = a.reshape(3, -1).cpu().tolist()
+    m = 0xFFFFFFFFFFFFFFFF
+    return [Fq3(x & m, y & m, z & m) for x, y, z in zip(*c)]

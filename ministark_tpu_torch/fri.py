@@ -1,5 +1,5 @@
-"""FRI commit/fold/query, Fp codewords (reference: src/fri.rs; mirrors
-``ministark_tpu.fri``).
+"""FRI commit/fold/query over Fp codewords (fib) and Fq3 codewords
+(brainfuck) (reference: src/fri.rs; mirrors ``ministark_tpu.fri``).
 
 Protocol facts replicated exactly (they affect proof bytes):
 
@@ -12,7 +12,10 @@ Protocol facts replicated exactly (they affect proof bytes):
 
 The prover runs one layer at a time with the host coin between layers:
 NTTs through kernels B and C, the fold in plain PyTorch, row hashes and
-tree levels through kernel D.  The verifier half is exact host scalar math.
+tree levels through kernel D.  An Fq3 codeword is a (3, n) tensor; its
+layer rows of N elements serialize each element as c0 || c1 || c2, so a
+layer is kept as an (N, 3, n/N) Fq3 matrix and hashed as one.  The
+verifier half is exact host scalar math.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 
 from . import merkle
 from .fields import device as fd
-from .fields.scalar import Fp, P, get_root_of_unity
+from .fields.scalar import Fp, Fq3, P, get_root_of_unity
 from .merkle import MerkleView
 from .ntt import Domain, bit_reverse_index, permute_bitrev
 from .ops import sha256 as ksha
@@ -85,16 +88,27 @@ class VerificationError(Exception):
 # ---------------------------------------------------------------------------
 
 class _Layer:
-    """A committed layer: its Merkle tree and its (n/N, N) rows, both on
-    the device until decommit."""
+    """A committed layer: its Merkle tree and its rows, both on the device
+    until decommit.  rows: (n/N, N) Fp values, or an (N, 3, n/N) Fq3
+    matrix whose column j holds element j of every row."""
 
     def __init__(self, tree, rows: torch.Tensor):
         self.tree = tree
         self.rows = rows
 
+    def rows_at(self, positions: list[int]) -> list:
+        """The rows at `positions`, flattened (N values per row)."""
+        idx = torch.tensor(positions, dtype=torch.int64,
+                           device=self.rows.device)
+        if self.rows.ndim == 2:
+            return [Fp(v) for v in fd.to_ints(self.rows.index_select(0, idx))]
+        block = self.rows.index_select(2, idx).permute(1, 2, 0)  # (3, q, N)
+        return fd.ext3_to_scalars(block.reshape(3, -1))
+
 
 class FriProver:
-    """Builds FRI layers from the DEEP composition LDE ((n,) natural order)."""
+    """Builds FRI layers from the DEEP composition LDE, natural order: (n,)
+    in Fp or (3, n) in Fq3."""
 
     def __init__(self, options: FriOptions):
         self.options = options
@@ -111,16 +125,23 @@ class FriProver:
         self._set_remainder(channel, evals, n)
 
     def _build_layer(self, channel, evals, n: int, N: int):
-        rows = permute_bitrev(evals).reshape(n // N, N)
-        tree = merkle.CommittedMerkleTree.from_leaf_digests(
-            ksha.hash_rows(rows))
+        bitrev = permute_bitrev(evals)
+        if evals.ndim == 1:
+            rows = bitrev.reshape(n // N, N)
+            digests = ksha.hash_rows(rows)
+        else:
+            rows = bitrev.reshape(3, n // N, N).permute(2, 0, 1).contiguous()
+            digests = ksha.hash_rows_ext3(rows)
+        tree = merkle.CommittedMerkleTree.from_leaf_digests(digests)
         channel.commit_fri_layer(tree.root())
         self.layers.append(_Layer(tree, rows))
         alpha = channel.draw_fri_alpha()
         return fold_evals(evals, n, N, alpha)
 
     def _set_remainder(self, channel, evals, n: int):
-        vals = [Fp(v) for v in fd.to_ints(Domain(n).ifft(evals))]
+        coeffs = Domain(n).ifft(evals)
+        vals = (fd.ext3_to_scalars(coeffs) if coeffs.ndim == 2
+                else [Fp(v) for v in fd.to_ints(coeffs)])
         max_coeffs = n // self.options.blowup_factor
         remainder, zero_tail = vals[:max_coeffs], vals[max_coeffs:]
         assert all(v.is_zero() for v in zero_tail), "remainder degree too high"
@@ -133,24 +154,28 @@ class FriProver:
         pos = list(positions)
         for layer in self.layers:
             pos = fold_positions(pos, N)
-            idx = torch.tensor(pos, dtype=torch.int64,
-                               device=layer.rows.device)
-            flattened = [Fp(v) for v in
-                         fd.to_ints(layer.rows.index_select(0, idx))]
-            proof_layers.append(LayerProof(flattened, layer.tree.prove(pos),
+            proof_layers.append(LayerProof(layer.rows_at(pos),
+                                           layer.tree.prove(pos),
                                            layer.tree.root()))
         return FriProof(proof_layers, self.remainder_coeffs)
 
 
-def fold_evals(evals: torch.Tensor, n: int, N: int, alpha: Fp) -> torch.Tensor:
+def fold_evals(evals: torch.Tensor, n: int, N: int, alpha) -> torch.Tensor:
     """One degree-respecting projection: plain iNTT, fold coefficient chunks
-    by alpha powers, scale by N, plain NTT on the smaller domain."""
-    coeffs = Domain(n).ifft(evals).reshape(n // N, N)
-    acc = coeffs[:, 0]
-    apow = alpha.v
+    by alpha powers, scale by N, plain NTT on the smaller domain.  evals:
+    (n,) with an Fp alpha, or (3, n) with an Fq3 alpha."""
+    ext = evals.ndim == 2
+    coeffs = Domain(n).ifft(evals).reshape(*evals.shape[:-1], n // N, N)
+    acc = coeffs[..., 0]
+    apow = alpha
     for j in range(1, N):
-        acc = fd.add(acc, fd.mul(coeffs[:, j], apow))
-        apow = apow * alpha.v % P
+        if ext:
+            term = fd.ext3_mul(coeffs[..., j],
+                               fd.ext3_scalar(apow, evals.device))
+        else:
+            term = fd.mul(coeffs[..., j], apow.v)
+        acc = fd.add(acc, term)
+        apow = apow * alpha
     return Domain(n // N).fft(fd.mul(acc, N))
 
 
@@ -238,7 +263,10 @@ class FriVerifier:
                 layer.flattened_rows[:len(rows) * N], N, offsets,
                 get_root_of_unity(N).v, alpha)
             if triples is not None:
-                evaluations = [Fp(t[0]) for t in triples]
+                is_ext = isinstance(alpha, Fq3) or isinstance(
+                    layer.flattened_rows[0], Fq3)
+                evaluations = [Fq3(*t) if is_ext else Fp(t[0])
+                               for t in triples]
             else:
                 evaluations = []
                 for row, offset in zip(rows, offsets):

@@ -2,7 +2,10 @@
 
 A ``Matrix`` holds every column stacked as one (ncols, n) int64 tensor, in
 natural domain order; bit-reversed order appears only at commitment and
-query time, as in ``ministark_tpu.matrix``.
+query time, as in ``ministark_tpu.matrix``.  A ``MatrixExt3`` holds Fq3
+columns as one (ncols, 3, n) tensor (``fields/device.py``'s layout): its
+3 * ncols component planes go through the Fp transforms as they are, since
+the NTT is linear.
 """
 
 from __future__ import annotations
@@ -15,6 +18,11 @@ from .fields.scalar import Fp
 from .ntt import Domain, bit_reverse_index
 
 
+def _bitrev_index(n: int, positions: list[int], device) -> torch.Tensor:
+    return torch.tensor([bit_reverse_index(n, p) for p in positions],
+                        dtype=torch.int64, device=device)
+
+
 class Matrix:
     """Fp matrix: values (ncols, n) int64."""
 
@@ -23,10 +31,12 @@ class Matrix:
         self.values = values
 
     @staticmethod
-    def from_columns_np(columns, device="cpu") -> "Matrix":
-        """columns: (ncols, n) array-like of canonical u64 values."""
+    def from_columns_np(columns, device=None) -> "Matrix":
+        """columns: (ncols, n) array-like of canonical u64 values, put on
+        `device` (the card unless the caller names another)."""
+        dev = fd.resolve_device(device)
         arr = np.ascontiguousarray(np.asarray(columns, dtype=np.uint64))
-        return Matrix(torch.from_numpy(arr.view(np.int64).copy()).to(device))
+        return Matrix(torch.from_numpy(arr.view(np.int64).copy()).to(dev))
 
     @property
     def num_cols(self) -> int:
@@ -34,24 +44,36 @@ class Matrix:
 
     @property
     def num_rows(self) -> int:
-        return self.values.shape[1]
+        return self.values.shape[-1]
 
     @property
     def device(self):
         return self.values.device
 
-    def interpolate(self, domain: Domain) -> "Matrix":
+    def interpolate(self, domain: Domain):
         """Evaluations over `domain` -> coefficients (per-column iNTT)."""
-        return Matrix(domain.ifft(self.values))
+        return type(self)(domain.ifft(self.values))
 
-    def evaluate(self, domain: Domain) -> "Matrix":
+    def evaluate(self, domain: Domain):
         """Coefficients -> evaluations over `domain`, natural order."""
-        return Matrix(domain.fft(self.values))
+        return type(self)(domain.fft(self.values))
 
     def get_bit_reversed_rows(self, positions: list[int]) -> list[list[Fp]]:
         """Rows at bit-reversed `positions`: one gather, one transfer."""
-        n = self.num_rows
-        idx = torch.tensor([bit_reverse_index(n, p) for p in positions],
-                           dtype=torch.int64, device=self.device)
+        idx = _bitrev_index(self.num_rows, positions, self.device)
         block = self.values.index_select(1, idx).T.cpu()
         return [[Fp(v) for v in fd.to_ints(row)] for row in block]
+
+
+class MatrixExt3(Matrix):
+    """Fq3 matrix: values (ncols, 3, n) int64."""
+
+    def __init__(self, values: torch.Tensor):
+        assert (values.ndim == 3 and values.shape[1] == 3
+                and values.dtype == torch.int64)
+        self.values = values
+
+    def get_bit_reversed_rows(self, positions: list[int]) -> list[list]:
+        idx = _bitrev_index(self.num_rows, positions, self.device)
+        block = self.values.index_select(2, idx).permute(2, 0, 1).cpu()
+        return [fd.ext3_to_scalars(row.T) for row in block]

@@ -164,6 +164,12 @@ def commit_matrix(values: torch.Tensor) -> CommittedMerkleTree:
     return CommittedMerkleTree(tree_levels(ksha.hash_rows(values.T)))
 
 
+def commit_matrix_ext3(values: torch.Tensor) -> CommittedMerkleTree:
+    """The same for an Fq3 matrix (ncols, 3, n): each row serializes its
+    elements as c0 || c1 || c2 (merkle.py:96-101 of the JAX package)."""
+    return CommittedMerkleTree(tree_levels(ksha.hash_rows_ext3(values)))
+
+
 # ---------------------------------------------------------------------------
 # verification (host; mirrors src/merkle.rs:209-288, 363-385)
 # ---------------------------------------------------------------------------

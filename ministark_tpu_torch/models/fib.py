@@ -14,6 +14,7 @@ import numpy as np
 from .. import serde
 from ..air import Hints
 from ..constraints import Constraint, constant, curr, hint, next, x
+from ..fields import device as fd
 from ..fields.scalar import Fp, P
 from ..matrix import Matrix
 from ..ntt import Domain
@@ -100,10 +101,12 @@ def _gen_rows(num_rows: int) -> np.ndarray:
     return rows
 
 
-def gen_trace(n: int, device="cpu") -> FibTrace:
-    """n total values (n/8 rows), as a Matrix on `device`."""
+def gen_trace(n: int, device=None) -> FibTrace:
+    """n total values (n/8 rows), as a Matrix on `device` (the card unless
+    the caller names another; raises when the card is absent)."""
     assert n & (n - 1) == 0 and n > 8
-    return FibTrace(Matrix.from_columns_np(_gen_rows(n // NUM_COLS).T, device))
+    dev = fd.resolve_device(device)
+    return FibTrace(Matrix.from_columns_np(_gen_rows(n // NUM_COLS).T, dev))
 
 
 class FibClaim(Stark):

@@ -15,6 +15,9 @@ from . import build
 KERNEL = build.register(
     "sha256", "sha256.cu",
     replaces="ministark_tpu/ops/sha256_pallas.py:51 _sha_kernel")
+KERNEL_EXT3 = build.register(
+    "sha256_ext3", "sha256.cu",
+    replaces="ministark_tpu/ops/sha256_pallas.py:171 hash_rows_ext3_lanes")
 
 _K = (
     0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
@@ -139,6 +142,38 @@ def hash_rows(rows: torch.Tensor) -> torch.Tensor:
     KERNEL.launch("ms_hash_rows", build.ptr(rows), build.ptr(out),
                   build.i64(n), build.i64(ncols), build.i64(rs),
                   build.i64(cs))
+    return out
+
+
+def ext3_rows(m: torch.Tensor) -> torch.Tensor:
+    """A (C, 3, n) Fq3 matrix as the (n, 3C) view of its rows: element
+    (row i, word 3c + k) is component k of column c at i, so a row
+    serializes column by column as c0 || c1 || c2, and every element lies
+    n apart from the next (a uniform stride, hence no copy)."""
+    if m.ndim != 3 or m.shape[1] != 3 or not m.is_contiguous():
+        raise ValueError(f"need a contiguous (C, 3, n) Fq3 matrix, got "
+                         f"{tuple(m.shape)}")
+    return m.reshape(3 * m.shape[0], m.shape[2]).T
+
+
+def hash_rows_ext3_plain(m: torch.Tensor) -> torch.Tensor:
+    return hash_rows_plain(ext3_rows(m))
+
+
+def hash_rows_ext3(m: torch.Tensor) -> torch.Tensor:
+    """Row digests of a (C, 3, n) Fq3 matrix, each element serialized as
+    c0 || c1 || c2 (8 little-endian bytes each) -> (n, 32) uint8.  Replaces
+    ``hash_rows_ext3_lanes``: on CUDA tensors kernel D's strided row hash
+    runs over the matrix in place; CPU tensors take the plain version."""
+    rows = ext3_rows(m)
+    if not m.is_cuda:
+        return hash_rows_plain(rows)
+    build.check_cuda(m, name="m")
+    n, width = rows.shape
+    out = torch.empty((n, 32), dtype=torch.uint8, device=m.device)
+    KERNEL_EXT3.launch("ms_hash_rows", build.ptr(m), build.ptr(out),
+                       build.i64(n), build.i64(width), build.i64(1),
+                       build.i64(n))
     return out
 
 

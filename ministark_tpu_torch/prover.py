@@ -1,5 +1,7 @@
 """The proving pipeline (reference: src/prover.rs `default_prove`; mirrors
-``ministark_tpu.prover._default_prove`` for Fp AIRs with SHA-256 trees).
+``ministark_tpu.prover._default_prove`` with SHA-256 trees, for Fp AIRs
+(fib) and AIRs over the cubic extension Fq3 (brainfuck), whose extension
+trace, composition trace, OOD points and FRI codewords are Fq3).
 
 Every matrix stays in NATURAL domain order on the device holding the
 witness; bit-reversed order exists only at commitment and query time.  The
@@ -19,7 +21,8 @@ from .channel import ProverChannel
 from .composer import DeepPolyComposer
 from .eval import eval_composition
 from .fri import FriOptions, FriProver
-from .matrix import Matrix
+from .fields.scalar import Fq3
+from .matrix import Matrix, MatrixExt3
 from .proof import Proof, Queries
 from .utils.timer import Timer
 
@@ -43,6 +46,7 @@ def default_prove(stark, options: ProofOptions, witness,
         channel = ProverChannel(air, stark.gen_public_coin(air))
     trace_dom = air.trace_domain()
     lde_dom = air.lde_domain()
+    fq_is_ext = getattr(air.config, "fq_type", None) is Fq3
 
     # -- phase 1: base trace commit (src/prover.rs:45-55) --------------------
     with timer("Base trace commitment"):
@@ -54,33 +58,52 @@ def default_prove(stark, options: ProofOptions, witness,
 
     challenges = Challenges(channel.public_coin.draw_multiple(air.num_challenges()))
     hints = air.gen_hints(challenges)
-    if trace.build_extension_columns(challenges) is not None:
-        raise NotImplementedError("extension traces are not ported yet")
+
+    # -- phase 2: extension trace commit (src/prover.rs:60-72) ---------------
+    with timer("Extension trace commitment"):
+        ext_trace = trace.build_extension_columns(challenges)
+        num_ext = ext_trace.num_cols if ext_trace is not None else 0
+        assert getattr(air.config, "NUM_EXTENSION_COLUMNS", 0) == num_ext
+        ext_polys = ext_lde = ext_tree = None
+        if ext_trace is not None:
+            ext_polys = ext_trace.interpolate(trace_dom)
+            ext_lde = ext_polys.evaluate(lde_dom)
+            ext_tree = merkle.commit_matrix_ext3(ext_lde.values)
+            channel.commit_extension_trace(ext_tree.root())
 
     # -- phase 3: composition trace (src/prover.rs:78-131) -------------------
     with timer("Constraint evaluation"):
         ce_dom = air.ce_domain()
-        base_ce = (base_lde if ce_dom.size == lde_dom.size
-                   else base_polys.evaluate(ce_dom))
+        same = ce_dom.size == lde_dom.size
+        base_ce = base_lde if same else base_polys.evaluate(ce_dom)
+        ext_ce = None
+        if ext_lde is not None:
+            ext_ce = (ext_lde if same else ext_polys.evaluate(ce_dom)).values
         composition_coeffs = channel.public_coin.draw_multiple(
             air.num_composition_constraint_coeffs())
         comp_evals = eval_composition(
             air, composition_coeffs, challenges, hints, ce_dom.elements(dev),
-            base_ce.values)
+            base_ce.values, ext_ce)
 
     with timer("Composition trace commitment"):
         cb = air.ce_blowup_factor
         coeffs = ce_dom.ifft(comp_evals)
         # split into cb interleaved columns: col_i[j] = coeffs[j*cb + i]
-        comp_polys = Matrix(coeffs.reshape(air.trace_len, cb).T.contiguous())
-        comp_lde = comp_polys.evaluate(lde_dom)
-        comp_tree = merkle.commit_matrix(comp_lde.values)
+        if fq_is_ext:
+            comp_polys = MatrixExt3(coeffs.reshape(3, air.trace_len, cb)
+                                    .permute(2, 0, 1).contiguous())
+            comp_lde = comp_polys.evaluate(lde_dom)
+            comp_tree = merkle.commit_matrix_ext3(comp_lde.values)
+        else:
+            comp_polys = Matrix(coeffs.reshape(air.trace_len, cb).T.contiguous())
+            comp_lde = comp_polys.evaluate(lde_dom)
+            comp_tree = merkle.commit_matrix(comp_lde.values)
         channel.commit_composition_trace(comp_tree.root())
 
     # -- phase 4: DEEP composition (src/prover.rs:133-149) -------------------
     with timer("DEEP composition"):
         z = channel.get_ood_point()
-        composer = DeepPolyComposer(air, z, base_lde, comp_lde)
+        composer = DeepPolyComposer(air, z, base_lde, comp_lde, ext_lde)
         execution_oods, composition_oods = composer.get_ood_evals()
         channel.send_ood_evals(execution_oods, composition_oods)
         deep_coeffs = stark.gen_deep_coeffs(channel.public_coin, air)
@@ -103,14 +126,14 @@ def default_prove(stark, options: ProofOptions, witness,
     with timer("FRI decommit"):
         fri_proof = fri_prover.into_proof(query_positions)
     with timer("Queries"):
-        queries = build_queries(base_lde, comp_lde, base_tree, comp_tree,
-                                query_positions)
+        queries = build_queries(base_lde, ext_lde, comp_lde, base_tree,
+                                ext_tree, comp_tree, query_positions)
 
     return Proof(
         options=options,
         trace_len=air.trace_len,
         base_trace_commitment=channel.base_trace_commitment,
-        extension_trace_commitment=None,
+        extension_trace_commitment=channel.extension_trace_commitment,
         composition_trace_commitment=channel.composition_trace_commitment,
         fri_proof=fri_proof,
         pow_nonce=channel.pow_nonce,
@@ -120,17 +143,20 @@ def default_prove(stark, options: ProofOptions, witness,
     )
 
 
-def build_queries(base_lde, comp_lde, base_tree, comp_tree,
-                  positions) -> Queries:
+def build_queries(base_lde, ext_lde, comp_lde, base_tree, ext_tree,
+                  comp_tree, positions) -> Queries:
     """Decommit trace rows at bit-reversed query positions
-    (src/trace.rs:114-157)."""
-    base_rows = base_lde.get_bit_reversed_rows(positions)
-    comp_rows = comp_lde.get_bit_reversed_rows(positions)
+    (src/trace.rs:114-157); `ext_lde` and `ext_tree` are None for an AIR
+    with no extension trace."""
+    def flat(m):
+        return [v for row in m.get_bit_reversed_rows(positions) for v in row]
+
     return Queries(
-        base_trace_values=[v for row in base_rows for v in row],
-        extension_trace_values=[],
-        composition_trace_values=[v for row in comp_rows for v in row],
+        base_trace_values=flat(base_lde),
+        extension_trace_values=[] if ext_lde is None else flat(ext_lde),
+        composition_trace_values=flat(comp_lde),
         base_trace_proof=base_tree.prove(positions),
-        extension_trace_proof=None,
+        extension_trace_proof=None if ext_tree is None
+        else ext_tree.prove(positions),
         composition_trace_proof=comp_tree.prove(positions),
     )

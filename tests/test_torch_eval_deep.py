@@ -79,7 +79,9 @@ def test_generated_source_host_build_matches_plain():
 
     jair, x, trace, _ = _inputs(42)
     air = _port_air(jair)
-    plan, source, _ = teval._plan_for(air)
+    plan, sources, _ = teval._plan_for(air)
+    assert len(sources) == 1  # an Fp AIR's terms form one group
+    source = sources[0]
     assert "__global__" in source and "ms_eval_host" in source
     n = x.shape[0]
     rng = np.random.default_rng(43)
@@ -87,15 +89,22 @@ def test_generated_source_host_build_matches_plain():
     inv = from_u64_numpy(rng.integers(0, P, size=(len(plan.inv_keys), n),
                                       dtype=np.uint64))
     per = torch.zeros((0, n), dtype=torch.int64)
-    s = from_u64_numpy(rng.integers(0, P, size=len(plan.scalars),
-                                    dtype=np.uint64))
-    want = keval.eval_terms(plan, source, air.ce_blowup_factor, tt, tx, per,
-                            inv, s)
+    ext = torch.zeros((0, 3, n), dtype=torch.int64)
+    inv3 = torch.zeros((0, 3, n), dtype=torch.int64)
+    s = rng.integers(0, P, size=plan.num_slots, dtype=np.uint64)
+    for what, e, _kind in plan.scalars:  # Pow exponents sit in the table
+        if what == "exp":
+            s[plan.slot[("exp", e)]] = e
+    s = from_u64_numpy(s)
+    want = keval.eval_terms(plan, sources, air.ce_blowup_factor, tt, ext, tx,
+                            per, inv, inv3, s)
     lib = build.build_host_library("eval_fib_check", source)
     lib.ms_eval_host.restype = None
-    lib.ms_eval_host.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64]
+    lib.ms_eval_host.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64,
+                                                         ctypes.c_int]
     out = torch.empty(n, dtype=torch.int64)
-    lib.ms_eval_host(*[t.data_ptr() for t in (tt, tx, per, inv, s, out)], n)
+    lib.ms_eval_host(*[t.data_ptr() for t in (tt, ext, tx, per, inv, inv3, s,
+                                              out)], n, 0)
     assert torch.equal(out, want)
 
 

@@ -15,7 +15,8 @@ import pytest
 pytestmark = pytest.mark.cuda
 
 P = 0xFFFFFFFF00000001
-KERNELS = ["inv", "ntt", "transpose", "sha256", "eval", "deep"]
+KERNELS = ["inv", "ntt", "transpose", "sha256", "eval", "deep", "inv_ext3",
+           "sha256_ext3", "eval_ext3", "deep_ext3"]
 
 
 @pytest.fixture
@@ -97,21 +98,38 @@ def test_kernel_matches_plain_on_card(dev, kernel):
         d = torch.randint(0, 256, (200, 32), dtype=torch.uint8, device=dev)
         _same(torch, ksha.merge(d[:100], d[100:]),
               ksha.merge_plain(d[:100], d[100:]))
-    elif kernel == "eval":
+    elif kernel in ("eval", "eval_ext3"):
         from ministark_tpu_torch import eval as teval
         from ministark_tpu_torch.air import Air, ProofOptions
         from ministark_tpu_torch.fields.scalar import Fp
-        from ministark_tpu_torch.models.fib import FibAirConfig
         from ministark_tpu_torch.ops import eval as keval
 
-        air = Air(FibAirConfig, 128, Fp(3), ProofOptions(8, 4, 2, 4, 16))
-        plan, source, _ = teval._plan_for(air)
+        if kernel == "eval":
+            from ministark_tpu_torch.models.fib import FibAirConfig
+
+            air = Air(FibAirConfig, 128, Fp(3), ProofOptions(8, 4, 2, 4, 16))
+        else:
+            from ministark_tpu_torch.models.brainfuck import (
+                BrainfuckAirConfig, BrainfuckClaim)
+
+            air = Air(BrainfuckAirConfig, 64,
+                      BrainfuckClaim("+.", b"", b"\x01"),
+                      ProofOptions(9, 16, 0, 4, 16))
+        plan, sources, _ = teval._plan_for(air)
         n = air.ce_domain().size
-        args = [_rand((8, n), 1), air.ce_domain().elements("cpu"),
-                torch.zeros((0, n), dtype=torch.int64),
-                _rand((len(plan.inv_keys), n), 2), _rand(len(plan.scalars), 3)]
+        n_fp = sum(1 for k in plan.inv_keys if plan.inv_kind[k] == "fp")
+        nb = air.config.NUM_BASE_COLUMNS
+        ne = getattr(air.config, "NUM_EXTENSION_COLUMNS", 0)
+        args = [_rand((nb, n), 1), _rand((ne, 3, n), 4),
+                air.ce_domain().elements("cpu"),
+                torch.zeros((0, n), dtype=torch.int64), _rand((n_fp, n), 2),
+                _rand((len(plan.inv_keys) - n_fp, 3, n), 5),
+                _rand(max(plan.num_slots, 1), 3)]
+        for what, e, _kind in plan.scalars:  # Pow exponents sit in the table
+            if what == "exp":
+                args[-1][plan.slot[("exp", e)]] = e
         cb = air.ce_blowup_factor
-        _same(torch, keval.eval_terms(plan, source, cb,
+        _same(torch, keval.eval_terms(plan, sources, cb,
                                       *[a.to(dev) for a in args]),
               keval.eval_terms_plain(plan, cb, *args))
     elif kernel == "deep":
@@ -125,4 +143,30 @@ def test_kernel_matches_plain_on_card(dev, kernel):
                                 [v.to(dev) for v in invs], s.to(dev),
                                 x.to(dev)),
               kdeep.deep_plain(cols, invs, s, x))
+    elif kernel == "inv_ext3":
+        from ministark_tpu_torch.ops import inv as kinv
+
+        for shape in ((3, 1), (3, 100), (2, 3, 4097)):
+            a = _rand(shape, shape[-1]).to(dev)
+            a[..., ::3] = 0          # zero elements
+            a[..., 1:, 1::3] = 0     # base-field elements
+            _same(torch, kinv.inv_ext3(a), kinv.inv_ext3_plain(a))
+    elif kernel == "sha256_ext3":
+        from ministark_tpu_torch.ops import sha256 as ksha
+
+        for ncols, n in ((1, 5), (9, 300), (16, 64), (4, 16)):
+            m = _rand((ncols, 3, n), ncols * n).to(dev)
+            _same(torch, ksha.hash_rows_ext3(m), ksha.hash_rows_ext3_plain(m))
+    elif kernel == "deep_ext3":
+        from ministark_tpu_torch.ops import deep as kdeep
+
+        n = 777
+        cols = [_rand(n, 1), _rand((3, n), 2), _rand((3, n), 3), _rand(n, 4)]
+        T = len(cols)
+        invs = [_rand((3, n), 10 + t % 2) for t in range(T)]
+        s, x = _rand(6 * T + 6, 20), _rand(n, 21)
+        _same(torch, kdeep.deep_ext3([c.to(dev) for c in cols],
+                                     [v.to(dev) for v in invs], s.to(dev),
+                                     x.to(dev)),
+              kdeep.deep_ext3_plain(cols, invs, s, x))
     assert build.KERNELS[kernel].launches > before

@@ -34,7 +34,7 @@ from ministark_tpu_torch.verifier import VerificationError
 
 opts = ProofOptions(num_queries=8, lde_blowup_factor=4, grinding_factor=2,
                     fri_folding_factor=4, fri_max_remainder_coeffs=16)
-trace = gen_trace(1 << 10)
+trace = gen_trace(1 << 10, device="cpu")
 claim = FibClaim(trace.last_value())
 data = claim.prove(opts, trace).to_bytes(Fp)
 claim.verify(Proof.from_bytes(data, Fp, Fp), 16)
