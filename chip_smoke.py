@@ -3,25 +3,39 @@
 
     python3 chip_smoke.py
 
-Two main paths, each driven through the user's entry points: the fib prove
-(Fp) and the brainfuck prove (Fq3 extension field).  Phases, any failure
-exits non-zero:
+Six main paths, each driven through the user's entry points: the fib
+prove (Fp, SHA-256), the brainfuck proves of fibonacci.bf and hello_world
+(Fq3 extension field, SHA-256), the fully algebraic fib prove (RPO-256
+trees and coin), hello_world with RPO-256 trees and coin (Fq3, the device
+RPO grind), and a 2^29-point coset LDE (the multi-pass column NTT).  Phases, any failure exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every hand-written kernel from ``ministark_tpu_torch/csrc`` and
      the constraint evaluators generated for the fib AIR (one source) and
      the brainfuck AIR (one source per term group) with nvcc, one process
      per source, all started together;
-  3. run each kernel against its plain PyTorch version on the card, at
-     the shapes of each prove that launches it: the six fib kernels at the
-     2^24-value fib prove's, the eight of the brainfuck path (the four Fq3
-     kernels and the ntt, transpose, sha256 and inv it shares with fib) at
-     the 2^20-row brainfuck prove's; integer field math, so the tolerance
-     is exact equality; print the kernel's time, the plain version's, the
-     bound (the least time the card could take) and, where one PyTorch
-     call computes the same function, its time;
+  3. run each kernel against its plain PyTorch version on the card, once
+     for each path that launches it, at that path's shapes: the six fib
+     kernels at the 2^24-value fib prove's, the eight of the brainfuck
+     path (the four Fq3 kernels and the ntt, transpose, sha256 and inv it
+     shares with fib) at the 2^20-row brainfuck prove's and again at
+     hello_world's, the RPO fib prove's seven (its five shared ones at the
+     fib prove's shapes; the RPO permutation's row hashes, merges and FRI
+     rows; the RPO grind on one batch), hello_world RPO's eight (its six
+     shared ones, the RPO permutation, the grind) at hello_world's shapes,
+     and the LDE's kernel B and transposes on both passes of its 2^27- and
+     the first of its 2^29-point transform, and the multi-pass NTT on the
+     second; integer field math, so the tolerance is exact equality;
+     print the kernel's time, the plain version's, the bound (the least time the
+     card could take) and, where one PyTorch call computes the same
+     function, its time.  The plain RPO permutation is some 16,000
+     elementwise launches, so at the fib path's shapes it is compared on a
+     2^18-state sample of the same inputs (the line says so) while the
+     kernel is timed at the full shape;
   4. prove fib at 2^10 values and brainfuck "++>+++[<+>-]<." with the
-     golden-fixture options: the bytes must equal ``tests/golden/`` and
-     every kernel of each path must have launched;
+     golden-fixture options, and the fully algebraic fib at 2^7 values:
+     the bytes must equal ``tests/golden/`` and every kernel of each path
+     must have launched; prove and verify fib at 2^7 values with RPO-256
+     trees and the SHA-256 coin;
   5. prove fib at 2^24 values (2^21 rows x 8 columns) with bench.py's
      options, cold then warm;
   6. prove ``programs/fibonacci.bf`` with its count cut from eleven to ten
@@ -30,14 +44,22 @@ exits non-zero:
      on the host;
   7. prove ``programs/hello_world.bf`` with the same options, cold then
      warm (bench.py's latency line);
-  8. print the card, the kernel table as one JSON line (one entry per
+  8. prove the fully algebraic fib at 2^24 values with bench.py's options,
+     cold then warm;
+  9. prove hello_world with RPO-256 trees and coin, 96-bit options, cold
+     then warm (its 20-bit grind runs on the card);
+ 10. a 2^29-point coset LDE of one 2^27-row column through
+     ``Matrix.interpolate``/``evaluate``, checked exactly (the inverse
+     transform gives the coefficients back; a column of 64 coefficients
+     agrees with Horner's rule on the host at a few points);
+ 11. print the card, the kernel table as one JSON line (one entry per
      kernel and path, with that path's launches), then the result.
 
-In phases 5-7 the counts of launches are reset just before the warm prove
+In phases 5-10 the counts of launches are reset just before the warm run
 and read just after, with per-phase CUDA-event times and peak device
 memory; the port's verifier must accept each proof (30 bits for fib, 96
-for brainfuck) and reject it with one byte flipped.  It imports nothing of
-JAX and nothing of ``ministark_tpu``.
+for brainfuck; on the host, in pure Python for RPO) and reject it with one
+byte flipped.  It imports nothing of JAX and nothing of ``ministark_tpu``.
 """
 
 from __future__ import annotations
@@ -52,13 +74,23 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_FIB = os.path.join(ROOT, "tests", "golden", "fib_2e10.proof")
 GOLDEN_BF = os.path.join(ROOT, "tests", "golden", "brainfuck_2plus3.proof")
+GOLDEN_RPO = os.path.join(ROOT, "tests", "golden", "fib_2e7_rpo_full.proof")
 PROGRAMS = os.path.join(ROOT, "programs")
 GOLDEN_BF_PROGRAM = "++>+++[<+>-]<."
 
-FIB, BF = "fib_2e24", "bf_fibonacci_2e20"  # the two main paths' proves
+FIB, BF = "fib_2e24", "bf_fibonacci_2e20"  # the SHA-256 paths' proves
+HELLO = "bf_hello_world"  # bench.py's latency line
+FIB_RPO, BF_RPO = "fib_rpo_2e24", "bf_hello_world_rpo"  # the RPO paths'
+LDE = "lde_2e29"
 FIB_PATH = ("inv", "ntt", "transpose", "sha256", "eval", "deep")
 BF_PATH = ("inv", "ntt", "transpose", "sha256", "inv_ext3", "sha256_ext3",
            "eval_ext3", "deep_ext3")
+FIB_RPO_PATH = ("inv", "ntt", "transpose", "eval", "deep", "rpo256",
+                "rpo256_grind")
+BF_RPO_PATH = ("inv", "ntt", "transpose", "inv_ext3", "eval_ext3",
+               "deep_ext3", "rpo256", "rpo256_grind")
+LDE_PATH = ("ntt", "transpose", "ntt_stage")
+RPO_SAMPLE = 1 << 18  # states the plain RPO permutation is compared on
 
 # The bound (bound_ms) is the larger of bytes over the memory rate and
 # 32-bit integer operations over the INT32 instruction rate, the peaks of
@@ -85,6 +117,11 @@ OPS_INV3 = 12 * OPS_MUL + 8 * OPS_ADD + OPS_INV
 # SHA-256 counted in Hopper's three-input instructions (LOP3, IADD3) and
 # funnel shifts: 14 per round, 10 per scheduled word.
 OPS_SHA_BLOCK = 64 * 14 + 48 * 10
+# RPO-256: 7 rounds of 12 x (4 + 72) products (x^7 and the x^(1/7) chain),
+# two MDS layers (each output 24 32x32->64 multiply-adds and its
+# reduction) and 24 round-constant adds
+OPS_MDS = 12 * (24 * 2 + 10)
+OPS_RPO = 7 * (12 * 76 * OPS_MUL + 2 * OPS_MDS + 24 * OPS_ADD)
 
 
 def fail(msg: str) -> None:
@@ -213,18 +250,21 @@ class Checker:
                 s[plan.slot[("exp", e)]] = e
         return s
 
-    def check(self, name, path, parts, nbytes, ops, reps=3, plain_reps=3):
+    def check(self, name, path, parts, nbytes, ops, reps=3, plain_reps=3,
+              plain_on=None):
         """Kernel `name` against its plain version at `path`'s shapes.  Each
         part makes its own inputs and returns (kernel, plain, library or
-        None), functions of no arguments; the parts' times add up, and one
-        part's inputs are freed before the next part's are made.
+        None[, full]), functions of no arguments; the parts' times add up,
+        and one part's inputs are freed before the next part's are made.
         plain_reps=1 times the one comparison run of the plain version (for
-        plain versions that take seconds)."""
+        plain versions that take seconds).  A part that returns `full`
+        compares kernel() with plain() on a sample of its inputs (named by
+        `plain_on`) and times full(), the kernel at the path's shape."""
         torch = self.torch
         err = ms = plain_ms = 0.0
         library_ms = None
         for make in parts:
-            kernel, plain, library = make()
+            kernel, plain, library, *full = make()
             got = kernel()
             if plain_reps == 1:
                 want, t_plain = timed_once(torch, plain)
@@ -233,13 +273,13 @@ class Checker:
             torch.cuda.synchronize()
             err = max(err, max_abs_err(torch, got, want))
             del got, want
-            ms += time_ms(torch, kernel, reps)
+            ms += time_ms(torch, full[0] if full else kernel, reps)
             plain_ms += (t_plain if plain_reps == 1
                          else time_ms(torch, plain, plain_reps))
             if library is not None:
                 library_ms = (library_ms or 0.0) + time_ms(torch, library,
                                                            reps)
-            del kernel, plain, library
+            del kernel, plain, library, full
             torch.cuda.empty_cache()
         bound_ms, bound_by = bound(nbytes, ops)
         self.results[(name, path)] = {
@@ -247,8 +287,12 @@ class Checker:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
         lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
+        on = ""
+        if plain_on:
+            self.results[(name, path)]["plain_on"] = plain_on
+            on = f" (compared and plain timed on {plain_on})"
         print(f"kernel {name} ({path}): max_abs_err={err} (tolerance 0) "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{on}, bound "
               f"{bound_ms:.3f} ms ({bound_by}){lib}", flush=True)
         if err != 0:
             fail(f"kernel {name} disagrees with its plain version on {path}")
@@ -267,8 +311,10 @@ def chunked(fn, x, step):
     return torch.cat([fn(x[i:i + step]) for i in range(0, x.shape[0], step)])
 
 
-def compare_fib_kernels(ck: Checker, fib_air_big):
-    """The six fib kernels at the 2^24-value prove's shapes."""
+def compare_fib_kernels(ck: Checker, fib_air_big, path, names):
+    """The fib kernels `names` at the 2^24-value prove's shapes, for
+    `path`: the SHA-256 fib prove, or the RPO one, whose LDE, constraint
+    evaluation and DEEP shapes are the same."""
     torch, dev = ck.torch, ck.dev
     from ministark_tpu_torch import eval as teval
     from ministark_tpu_torch.fields.scalar import P
@@ -291,8 +337,8 @@ def compare_fib_kernels(ck: Checker, fib_air_big):
     # A: the OOD barycentric inverses, one LDE-sized vector (zeros included)
     a = rand(lde_n)
     a[::4096] = 0
-    ck.check("inv", FIB, part(lambda: kinv.inv_fp(a),
-                              lambda: kinv.inv_fp_plain(a)),
+    ck.check("inv", path, part(lambda: kinv.inv_fp(a),
+                               lambda: kinv.inv_fp_plain(a)),
              16 * lde_n, lde_n * OPS_INV + OPS_INV_CHAIN)
     del a
 
@@ -315,38 +361,39 @@ def compare_fib_kernels(ck: Checker, fib_air_big):
             kntt.col_ntt_plain(x2, tw2, tmat=post).reshape(-1)])
 
     butterflies = cols * lde_n * (lde_n.bit_length() - 1) // 2
-    ck.check("ntt", FIB, part(ntt_kernel, ntt_plain),
+    ck.check("ntt", path, part(ntt_kernel, ntt_plain),
              8 * (4 * cols * lde_n + 3 * lde_n + n1 // 2 + n2 // 2),
              butterflies * (OPS_MUL + 2 * OPS_ADD) + 3 * cols * lde_n * OPS_MUL,
              reps=2, plain_reps=2)
 
     # C: the six-step transpose of the same LDE; one torch call (a strided
     # copy) computes the same function
-    ck.check("transpose", FIB,
+    ck.check("transpose", path,
              part(lambda: ktr.transpose(x1), lambda: ktr.transpose_plain(x1),
                   lambda: x1.transpose(-1, -2).contiguous()),
              16 * cols * lde_n, 0)
     del x1, x2, pre, tmat, post
 
     # D: LDE row digests (column-major view) and one tree level of merges
-    m = rand(cols, lde_n)
-    left = torch.randint(0, 256, (lde_n // 2, 32), generator=ck.g, device=dev,
-                         dtype=torch.int64).to(torch.uint8)
-    right = torch.randint(0, 256, (lde_n // 2, 32), generator=ck.g, device=dev,
-                          dtype=torch.int64).to(torch.uint8)
+    if "sha256" in names:
+        m = rand(cols, lde_n)
+        left, right = (torch.randint(0, 256, (lde_n // 2, 32), generator=ck.g,
+                                     device=dev, dtype=torch.int64)
+                       .to(torch.uint8) for _ in range(2))
 
-    def sha_kernel():
-        return torch.cat([ksha.hash_rows(m.T), ksha.merge(left, right)])
+        def sha_kernel():
+            return torch.cat([ksha.hash_rows(m.T), ksha.merge(left, right)])
 
-    def sha_plain():
-        return torch.cat([ksha.hash_rows_plain(m.T),
-                          ksha.merge_plain(left, right)])
+        def sha_plain():
+            return torch.cat([ksha.hash_rows_plain(m.T),
+                              ksha.merge_plain(left, right)])
 
-    ck.check("sha256", FIB, part(sha_kernel, sha_plain),
-             8 * cols * lde_n + 32 * lde_n + 64 * (lde_n // 2) + 32 * (lde_n // 2),
-             (lde_n * sha_blocks(8 * cols) + lde_n // 2 * sha_blocks(64))
-             * OPS_SHA_BLOCK, reps=2, plain_reps=2)
-    del m, left, right
+        ck.check("sha256", path, part(sha_kernel, sha_plain),
+                 8 * cols * lde_n + 32 * lde_n + 64 * (lde_n // 2)
+                 + 32 * (lde_n // 2),
+                 (lde_n * sha_blocks(8 * cols) + lde_n // 2 * sha_blocks(64))
+                 * OPS_SHA_BLOCK, reps=2, plain_reps=2)
+        del m, left, right
 
     # E: the fib AIR's generated evaluator over the CE domain
     plan, sources, _denoms = teval._plan_for(fib_air_big)
@@ -358,7 +405,7 @@ def compare_fib_kernels(ck: Checker, fib_air_big):
             rand(len(plan.inv_keys), ce_n),
             torch.zeros((0, 3, ce_n), dtype=torch.int64, device=dev),
             ck.scalar_table(plan)]
-    ck.check("eval", FIB,
+    ck.check("eval", path,
              part(lambda: keval.eval_terms(plan, sources, cb, *args),
                   lambda: keval.eval_terms_plain(plan, cb, *args)),
              8 * ce_n * (cols + 1 + len(plan.inv_keys) + 1),
@@ -373,16 +420,18 @@ def compare_fib_kernels(ck: Checker, fib_air_big):
     rows = [dinvs[t % 2 if t < T - cb else 2] for t in range(T)]
     ds = rand(2 * T + 2)
     xl = lde.elements(dev)
-    ck.check("deep", FIB, part(lambda: kdeep.deep(dcols, rows, ds, xl),
-                               lambda: kdeep.deep_plain(dcols, rows, ds, xl)),
+    ck.check("deep", path, part(lambda: kdeep.deep(dcols, rows, ds, xl),
+                                lambda: kdeep.deep_plain(dcols, rows, ds, xl)),
              8 * lde_n * (T + 3 + 2),
              lde_n * (T * (2 * OPS_MUL + 2 * OPS_ADD) + 2 * OPS_MUL + OPS_ADD))
 
 
-def compare_bf_kernels(ck: Checker, bf_air_big):
-    """The eight kernels of the brainfuck path at the 2^20-row prove's
-    shapes (LDE and CE domain 2^24 points): the four Fq3 kernels, and the
-    ntt, transpose, sha256 and inv kernels it shares with the fib path."""
+def compare_bf_kernels(ck: Checker, bf_air_big, path, names):
+    """The brainfuck kernels `names` at the shapes of `path`'s prove,
+    whose AIR is `bf_air_big`: the four Fq3 kernels, and the ntt,
+    transpose, inv and (on the SHA-256 paths) sha256 kernels it shares
+    with the fib path.  fibonacci.bf's 2^20 rows give LDE and CE domains
+    of 2^24 points, hello_world's 2^11 rows domains of 2^15."""
     torch, dev = ck.torch, ck.dev
     from ministark_tpu_torch import eval as teval
     from ministark_tpu_torch.fields.scalar import P
@@ -412,13 +461,13 @@ def compare_bf_kernels(ck: Checker, bf_air_big):
     # A: the constraint evaluation's Fp denominators over the CE domain
     d = rand(n_fp, ce_n)
     d[..., ::4096] = 0
-    ck.check("inv", BF, part(lambda: kinv.inv_fp(d),
-                             lambda: kinv.inv_fp_plain(d)),
+    ck.check("inv", path, part(lambda: kinv.inv_fp(d),
+                               lambda: kinv.inv_fp_plain(d)),
              16 * n_fp * ce_n, n_fp * ce_n * OPS_INV + OPS_INV_CHAIN,
              plain_reps=1)
     del d
 
-    # B: both column passes of the three 2^24-point coset LDEs: the base
+    # B: both column passes of the three coset LDEs: the base
     # trace (17 planes), the extension trace (9 Fq3 columns, 27 planes) and
     # the composition trace (16 Fq3 columns, 48 planes); one part per
     # matrix and pass, the plain version four planes at a time
@@ -442,7 +491,7 @@ def compare_bf_kernels(ck: Checker, bf_air_big):
                                     x, 4), None)
         return make
 
-    ck.check("ntt", BF, [ntt_part(w, f) for w in widths for f in (1, 0)],
+    ck.check("ntt", path, [ntt_part(w, f) for w in widths for f in (1, 0)],
              sum(8 * (4 * w * n + 2 * n + n1 // 2 + n2 // 2) for w in widths),
              sum(w * n * (n.bit_length() - 1) // 2 * (OPS_MUL + 2 * OPS_ADD)
                  + 2 * w * n * OPS_MUL for w in widths),
@@ -457,64 +506,66 @@ def compare_bf_kernels(ck: Checker, bf_air_big):
                     lambda: x.transpose(-1, -2).contiguous())
         return make
 
-    ck.check("transpose", BF, [tr_part(w) for w in widths],
+    ck.check("transpose", path, [tr_part(w) for w in widths],
              sum(16 * w * n for w in widths), 0, reps=2, plain_reps=2)
 
-    # D: the base LDE's row digests (17 columns, column-major view) and one
-    # tree level of merges
-    def sha_rows():
-        m = rand(nb, n)
-        return (lambda: ksha.hash_rows(m.T),
-                lambda: chunked(ksha.hash_rows_plain, m.T, chunk), None)
+    if "sha256" in names:
+        # D: the base LDE's row digests (17 columns, column-major view)
+        # and one tree level of merges
+        def sha_rows():
+            m = rand(nb, n)
+            return (lambda: ksha.hash_rows(m.T),
+                    lambda: chunked(ksha.hash_rows_plain, m.T, chunk), None)
 
-    def sha_merges():
-        left, right = (torch.randint(0, 256, (n // 2, 32), generator=ck.g,
-                                     device=dev, dtype=torch.int64)
-                       .to(torch.uint8) for _ in range(2))
-        return (lambda: ksha.merge(left, right),
-                lambda: torch.cat([ksha.merge_plain(left[i:i + chunk],
-                                                    right[i:i + chunk])
-                                   for i in range(0, n // 2, chunk)]), None)
+        def sha_merges():
+            left, right = (torch.randint(0, 256, (n // 2, 32), generator=ck.g,
+                                         device=dev, dtype=torch.int64)
+                           .to(torch.uint8) for _ in range(2))
+            return (lambda: ksha.merge(left, right),
+                    lambda: torch.cat([
+                        ksha.merge_plain(left[i:i + chunk], right[i:i + chunk])
+                        for i in range(0, n // 2, chunk)]), None)
 
-    ck.check("sha256", BF, [sha_rows, sha_merges],
-             8 * nb * n + 32 * n + 64 * (n // 2) + 32 * (n // 2),
-             (n * sha_blocks(8 * nb) + n // 2 * sha_blocks(64))
-             * OPS_SHA_BLOCK, reps=2, plain_reps=1)
+        ck.check("sha256", path, [sha_rows, sha_merges],
+                 8 * nb * n + 32 * n + 64 * (n // 2) + 32 * (n // 2),
+                 (n * sha_blocks(8 * nb) + n // 2 * sha_blocks(64))
+                 * OPS_SHA_BLOCK, reps=2, plain_reps=1)
 
     # A (Fq3): the DEEP phase's barycentric inverses 1/(y - x), zeros
     # included
     a = rand(npts, 3, n)
     a[..., ::4096] = 0
-    ck.check("inv_ext3", BF, part(lambda: kinv.inv_ext3(a),
-                                  lambda: kinv.inv_ext3_plain(a)),
+    ck.check("inv_ext3", path, part(lambda: kinv.inv_ext3(a),
+                                    lambda: kinv.inv_ext3_plain(a)),
              2 * 24 * npts * n, npts * n * OPS_INV3 + OPS_INV_CHAIN,
              plain_reps=1)
     del a
 
-    # D (Fq3): the extension trace, the composition trace and FRI layer 0
-    # (rows of 16 Fq3 values)
-    fold = bf_air_big.options.fri_folding_factor
-    mats = [rand(ne, 3, n), rand(ncomp, 3, n), rand(fold, 3, n // fold)]
+    if "sha256_ext3" in names:
+        # D (Fq3): the extension trace, the composition trace and FRI layer 0
+        # (rows of 16 Fq3 values)
+        fold = bf_air_big.options.fri_folding_factor
+        mats = [rand(ne, 3, n), rand(ncomp, 3, n), rand(fold, 3, n // fold)]
 
-    def sha_kernel():
-        return torch.cat([ksha.hash_rows_ext3(m) for m in mats])
+        def sha_kernel():
+            return torch.cat([ksha.hash_rows_ext3(m) for m in mats])
 
-    def sha_plain():
-        out = []
-        for m in mats:
-            rows = ksha.ext3_rows(m)
-            out += [ksha.hash_rows_plain(rows[i:i + chunk])
-                    for i in range(0, rows.shape[0], chunk)]
-        return torch.cat(out)
+        def sha_plain():
+            out = []
+            for m in mats:
+                rows = ksha.ext3_rows(m)
+                out += [ksha.hash_rows_plain(rows[i:i + chunk])
+                        for i in range(0, rows.shape[0], chunk)]
+            return torch.cat(out)
 
-    ck.check("sha256_ext3", BF, part(sha_kernel, sha_plain),
-             sum(8 * m.numel() + 32 * m.shape[2] for m in mats),
-             sum(m.shape[2] * sha_blocks(24 * m.shape[0]) for m in mats)
-             * OPS_SHA_BLOCK, reps=2, plain_reps=1)
-    del mats
+        ck.check("sha256_ext3", path, part(sha_kernel, sha_plain),
+                 sum(8 * m.numel() + 32 * m.shape[2] for m in mats),
+                 sum(m.shape[2] * sha_blocks(24 * m.shape[0]) for m in mats)
+                 * OPS_SHA_BLOCK, reps=2, plain_reps=1)
+        del mats
 
     # E (Fq3): the brainfuck AIR's generated evaluator, one kernel per term
-    # group, over the 2^24-point CE domain
+    # group, over the CE domain
     eargs = [rand(nb, ce_n), rand(ne, 3, ce_n),
              bf_air_big.ce_domain().elements(dev),
              torch.zeros((len(plan.periodic), ce_n), dtype=torch.int64,
@@ -524,7 +575,7 @@ def compare_bf_kernels(ck: Checker, bf_air_big):
     cb = bf_air_big.ce_blowup_factor
     planes = nb + 3 * ne + 1 + len(plan.periodic) + n_fp + 3 * (
         len(plan.inv_keys) - n_fp)
-    ck.check("eval_ext3", BF,
+    ck.check("eval_ext3", path,
              part(lambda: keval.eval_terms(plan, sources, cb, *eargs),
                   lambda: torch.cat([
                       keval.eval_terms_plain(
@@ -551,12 +602,215 @@ def compare_bf_kernels(ck: Checker, bf_air_big):
     n_fp_terms = sum(1 for c in cols if c.ndim == 1)
     term_ops = (2 * OPS_MUL3 + 4 * OPS_ADD) * n_fp_terms + (
         2 * OPS_MUL3 + 6 * OPS_ADD) * (T - n_fp_terms)
-    ck.check("deep_ext3", BF,
+    ck.check("deep_ext3", path,
              part(lambda: kdeep.deep_ext3(cols, rows, ds, xl),
                   lambda: kdeep.deep_ext3_plain(cols, rows, ds, xl)),
              8 * n * (nb + 3 * ne + 3 * ncomp + 3 * npts + 1 + 3),
              n * (term_ops + 3 * OPS_MUL + 3 * OPS_ADD + OPS_MUL3),
              plain_reps=1)
+
+
+def rpo_part(ck, make_input, hash_fn, plain_fn, sample=True):
+    """One rpo256 part: make_input() gives the full-shape input (rows
+    first); the kernel is timed on it, and kernel and plain version are
+    compared on its first RPO_SAMPLE rows when `sample`, else on all."""
+    def make():
+        x = make_input()
+        xs = x[:RPO_SAMPLE] if sample else x
+        full = (lambda: hash_fn(x)) if sample else None
+        return (lambda: hash_fn(xs), lambda: plain_fn(xs), None,
+                *([full] if full else []))
+    return make
+
+
+def digests(ck, n):
+    """n random RPO digests: four canonical elements each, (n, 32) uint8."""
+    return ck.rand(n, 4).view(ck.torch.uint8)
+
+
+def merge_halves(merge):
+    """One tree level as the tree builds it: the two halves of a level."""
+    return lambda d: merge(d[:d.shape[0] // 2], d[d.shape[0] // 2:])
+
+
+def compare_fib_rpo_kernels(ck: Checker, fib_air_big):
+    """The RPO permutation at the fully algebraic fib prove's shapes: the
+    2^23 eight-column base rows, the 2^23 one-column composition rows, one
+    tree level of 2^22 merges and FRI layer 0 (2^20 rows of 8)."""
+    from ministark_tpu_torch.ops import rpo256 as krpo
+
+    n = fib_air_big.lde_domain().size
+    cb = fib_air_big.ce_blowup_factor
+    fold = fib_air_big.options.fri_folding_factor
+
+    parts = [
+        rpo_part(ck, lambda: ck.rand(8, n).T, krpo.hash_rows,
+                 krpo.hash_rows_plain),
+        rpo_part(ck, lambda: ck.rand(cb, n).T, krpo.hash_rows,
+                 krpo.hash_rows_plain),
+        rpo_part(ck, lambda: digests(ck, n), merge_halves(krpo.merge),
+                 merge_halves(krpo.merge_plain)),
+        rpo_part(ck, lambda: ck.rand(n // fold, fold), krpo.hash_rows,
+                 krpo.hash_rows_plain)]
+    perms = (n + n * ((cb + 7) // 8) + n // 2
+             + (n // fold) * ((fold + 7) // 8))
+    ck.check("rpo256", FIB_RPO, parts,
+             8 * (8 + cb + 1) * n + 64 * n + 96 * (n // 2) + 32 * (n // fold),
+             perms * OPS_RPO, reps=2, plain_reps=1,
+             plain_on=f"the first {RPO_SAMPLE} rows of each part")
+
+
+def compare_bf_rpo_kernels(ck: Checker, hello_air):
+    """The RPO permutation at hello_world's shapes (LDE 2^15 points): the
+    17-column base rows, the 9- and 16-column Fq3 rows, one tree level of
+    merges and FRI layer 0 (2^11 rows of 16 Fq3 values), all compared in
+    full."""
+    from ministark_tpu_torch.ops import rpo256 as krpo
+
+    n = hello_air.lde_domain().size
+    nb = hello_air.config.NUM_BASE_COLUMNS
+    ne = hello_air.config.NUM_EXTENSION_COLUMNS
+    ncomp = hello_air.ce_blowup_factor
+    fold = hello_air.options.fri_folding_factor
+
+    def whole(make_input, fn, plain):
+        return rpo_part(ck, make_input, fn, plain, sample=False)
+
+    parts = [
+        whole(lambda: ck.rand(nb, n).T, krpo.hash_rows, krpo.hash_rows_plain),
+        whole(lambda: ck.rand(ne, 3, n), krpo.hash_rows_ext3,
+              krpo.hash_rows_ext3_plain),
+        whole(lambda: ck.rand(ncomp, 3, n), krpo.hash_rows_ext3,
+              krpo.hash_rows_ext3_plain),
+        whole(lambda: digests(ck, n), merge_halves(krpo.merge),
+              merge_halves(krpo.merge_plain)),
+        whole(lambda: ck.rand(fold, 3, n // fold), krpo.hash_rows_ext3,
+              krpo.hash_rows_ext3_plain)]
+    absorbs = [(w + 7) // 8 for w in (nb, 3 * ne, 3 * ncomp)]
+    perms = n * sum(absorbs) + n // 2 + (n // fold) * ((3 * fold + 7) // 8)
+    elems = (nb + 3 * ne + 3 * ncomp) * n + 3 * n
+    ck.check("rpo256", BF_RPO, parts, 8 * elems + 32 * 3 * n + 96 * (n // 2)
+             + 32 * (n // fold), perms * OPS_RPO, reps=2, plain_reps=1)
+
+
+def compare_grind(ck: Checker, path, bits):
+    """The RPO grind kernel on one batch of nonces, as large as the path's
+    grind launches it (4 * 2^bits, at most 2^20): every nonce's count of
+    leading zeros against the plain version, on a 2^18-nonce sample where
+    the batch is larger."""
+    torch = ck.torch
+    from ministark_tpu_torch.ops import pow as kpow
+
+    seed = kpow.seed_elements(bytes(range(7, 39)), ck.dev)
+    batch = min(kpow.BATCH_CUDA, 1 << (bits + 2))
+    sample = min(batch, RPO_SAMPLE)
+
+    def make():
+        lz = torch.empty(sample, dtype=torch.int32, device=ck.dev)
+
+        def kernel():
+            kpow.grind_batch(seed, 1, sample, bits, lz=lz)
+            return lz
+
+        full = [lambda: kpow.grind_batch(seed, 1, batch, bits)]
+        return (kernel, lambda: kpow.leading_zeros_plain(seed, 1, sample),
+                None, *(full if batch > sample else []))
+
+    ck.check("rpo256_grind", path, [make], 32 + 4, batch * OPS_RPO,
+             plain_reps=1, plain_on=(f"the first {sample} of {batch} nonces"
+                                     if batch > sample else None))
+
+
+def plain_by_columns(kntt, x, tw, pre=None, tmat=None, parts=16):
+    """col_ntt_plain over `parts` slices of the columns, concatenated: the
+    plain version of a 2^27- or 2^29-point pass, whose temporaries would
+    not fit whole."""
+    import torch
+
+    step = x.shape[-1] // parts
+
+    def cut(t, i):
+        return None if t is None else t[..., i:i + step].contiguous()
+
+    return torch.cat([kntt.col_ntt_plain(cut(x, i), tw, cut(pre, i),
+                                         cut(tmat, i))
+                      for i in range(0, x.shape[-1], step)], dim=-1)
+
+
+def compare_lde_kernels(ck: Checker):
+    """The LDE path's kernels at its shapes: kernel B and the transpose on
+    both passes of the 2^27-point inverse transform (columns of 2^13, then
+    2^14 points, one column per block) and on the first pass of the
+    2^29-point coset transform (columns of 2^14 points, with its pre and
+    twiddle tables); the multi-pass kernel on that transform's second
+    pass (2^14 columns of 2^15 points), and at n1 = 2^12 against kernel B
+    on one input.  Each buffer of 2^29 values is 4 GiB; the plain version
+    runs a sixteenth of the columns at a time."""
+    torch = ck.torch
+    from ministark_tpu_torch.fields.scalar import P
+    from ministark_tpu_torch.ntt import Domain, _split_n, _stage_table, powers
+    from ministark_tpu_torch.ops import ntt as kntt
+    from ministark_tpu_torch.ops import transpose as ktr
+
+    n_trace, n = 1 << 27, 1 << 29
+    t1, t2 = _split_n(n_trace)
+    n1, n2 = _split_n(n)
+    g_trace_inv = pow(Domain(n_trace).group_gen, P - 2, P)
+    lde = Domain(n, 7)
+
+    def pass_part(rows, cols, root, tables):
+        # a pass of an (rows * cols)-point transform with primitive root
+        # `root`: its columns' root is root^cols
+        def make():
+            x = ck.rand(1, rows, cols)
+            tw = _stage_table(pow(root, cols, P), rows, ck.dev)
+            pre = ck.rand(rows, cols) if "pre" in tables else None
+            tmat = ck.rand(rows, cols)
+            return (lambda: kntt.col_ntt(x, tw, pre, tmat),
+                    lambda: plain_by_columns(kntt, x, tw, pre, tmat), None)
+        return make
+
+    passes = ((t1, t2, g_trace_inv, ("tmat",)),
+              (t2, t1, g_trace_inv, ("tmat",)),
+              (n1, n2, lde.group_gen, ("pre", "tmat")))
+    ck.check("ntt", LDE, [pass_part(*p) for p in passes],
+             sum(8 * (2 + len(t)) * r * c + 4 * r for r, c, _, t in passes),
+             sum(r * c * (r.bit_length() - 1) // 2 * (OPS_MUL + 2 * OPS_ADD)
+                 + len(t) * r * c * OPS_MUL for r, c, _, t in passes),
+             reps=2, plain_reps=1)
+    torch.cuda.empty_cache()
+
+    def tr_part(rows, cols):
+        def make():
+            x = ck.rand(1, rows, cols)
+            return (lambda: ktr.transpose(x), lambda: ktr.transpose_plain(x),
+                    lambda: x.transpose(-1, -2).contiguous())
+        return make
+
+    ck.check("transpose", LDE, [tr_part(t1, t2), tr_part(n1, n2)],
+             16 * (n_trace + n), 0, reps=2, plain_reps=2)
+    torch.cuda.empty_cache()
+
+    tw2 = _stage_table(pow(lde.group_gen, n1, P), n2, ck.dev)
+    x = ck.rand(1, n2, n1)
+    butterflies = n // 2 * (n2.bit_length() - 1)
+    ck.check("ntt_stage", LDE,
+             part(lambda: kntt.col_ntt(x, tw2),
+                  lambda: plain_by_columns(kntt, x, tw2)),
+             16 * n, butterflies * (OPS_MUL + 2 * OPS_ADD), reps=2,
+             plain_reps=1)
+    del x
+    torch.cuda.empty_cache()
+
+    m = 1 << 12
+    tw = powers(pow(lde.group_gen, n // m, P), m // 2, ck.dev)
+    y, pre, tmat = ck.rand(2, m, 64), ck.rand(m, 64), ck.rand(m, 64)
+    err = max_abs_err(torch, kntt.col_ntt_staged(y, tw, pre, tmat),
+                      kntt.col_ntt(y, tw, pre, tmat))
+    print(f"kernel ntt_stage at n1 = 2^12 against kernel B on the same "
+          f"input: max_abs_err={err} (tolerance 0)", flush=True)
+    if err != 0:
+        fail("the multi-pass NTT disagrees with kernel B at n1 = 2^12")
 
 
 # ProofOptions(num_queries, lde_blowup_factor, grinding_factor,
@@ -565,14 +819,39 @@ FIB_OPTS = (32, 4, 8, 8, 64)    # bench.py's fib options
 BF_OPTS = (19, 16, 20, 16, 16)  # brainfuck's 96-bit options
 
 
+def rpo_claims():
+    """The RPO configurations: ``Stark`` subclasses that set the hash knobs
+    (the reference's MerkleTree and PublicCoin associated types), as the
+    JAX package's tests define them: (FibClaimRpoFull, FibClaimRpo,
+    BrainfuckClaimRpo)."""
+    from ministark_tpu_torch import hash_rpo
+    from ministark_tpu_torch.models.brainfuck import BrainfuckClaim
+    from ministark_tpu_torch.models.fib import FibClaim
+
+    class FibClaimRpoFull(FibClaim):  # RPO trees and RPO coin
+        merkle_hash = hash_rpo
+        coin_hash = hash_rpo
+
+    class FibClaimRpo(FibClaim):  # RPO trees, SHA-256 coin
+        merkle_hash = hash_rpo
+
+    class BrainfuckClaimRpo(BrainfuckClaim):
+        merkle_hash = hash_rpo
+        coin_hash = hash_rpo
+
+    return FibClaimRpoFull, FibClaimRpo, BrainfuckClaimRpo
+
+
 def workload(name: str):
-    """One of the three proves this script drives (and
+    """One of the proves this script drives (and
     ``scripts/profile_prove.py`` profiles), made through the user's entry
     points on the card:
-      "fib"    fib at 2^24 values (2^21 rows x 8 columns), FIB_OPTS;
-      "bf"     ``programs/fibonacci.bf`` with its count line cut from eleven
-               '+' to ten (2^20 rows), BF_OPTS;
-      "hello"  ``programs/hello_world.bf``, BF_OPTS.
+      "fib"        fib at 2^24 values (2^21 rows x 8 columns), FIB_OPTS;
+      "bf"         ``programs/fibonacci.bf`` with its count line cut from
+                   eleven '+' to ten (2^20 rows), BF_OPTS;
+      "hello"      ``programs/hello_world.bf``, BF_OPTS;
+      "fib_rpo"    "fib" with RPO-256 trees and coin;
+      "hello_rpo"  "hello" with RPO-256 trees and coin.
     Returns (claim, trace, options, info); info holds the host seconds that
     made the trace and, for brainfuck, the rows and the program's output."""
     import torch
@@ -582,10 +861,11 @@ def workload(name: str):
                                                       BrainfuckTrace, simulate)
     from ministark_tpu_torch.models.fib import FibClaim, gen_trace
 
-    if name == "fib":
+    fib_rpo, _, bf_rpo = rpo_claims()
+    if name in ("fib", "fib_rpo"):
         t0 = time.perf_counter()
         trace = gen_trace(1 << 24)
-        claim = FibClaim(trace.last_value())
+        claim = (FibClaim if name == "fib" else fib_rpo)(trace.last_value())
         torch.cuda.synchronize()
         return claim, trace, ProofOptions(*FIB_OPTS), {
             "trace_gen_s": time.perf_counter() - t0}
@@ -609,7 +889,8 @@ def workload(name: str):
     t0 = time.perf_counter()
     trace = BrainfuckTrace(tables)
     torch.cuda.synchronize()
-    return BrainfuckClaim(source, b"", output), trace, ProofOptions(*BF_OPTS), {
+    cls = bf_rpo if name == "hello_rpo" else BrainfuckClaim
+    return cls(source, b"", output), trace, ProofOptions(*BF_OPTS), {
         "vm_s": vm_s, "trace_upload_s": time.perf_counter() - t0,
         "rows": rows, "output": output}
 
@@ -665,7 +946,67 @@ def verify_and_tamper(claim, data, fp, fq, bits, what):
     return verify_s
 
 
+def lde_2e29(torch, build, ck):
+    """A one-column 2^29-point coset LDE (blowup 4 over a 2^27-row trace
+    domain) through Matrix.interpolate/evaluate; its second column pass
+    (2^15 rows) runs the multi-pass kernel.  Checked exactly: the inverse
+    transform of the LDE gives the coefficients back (zero above 2^27), and
+    a column of 64 nonzero coefficients agrees with Horner's rule on the
+    host at a few LDE points."""
+    from ministark_tpu_torch.fields import device as fd
+    from ministark_tpu_torch.fields.scalar import P
+    from ministark_tpu_torch.matrix import Matrix
+    from ministark_tpu_torch import ntt as tntt
+
+    n, blowup = 1 << 27, 4
+    trace_dom, lde_dom = tntt.Domain(n), tntt.Domain(n * blowup, 7)
+    # each 2^29-point buffer is 4 GiB: the LDE, the padded input, the first
+    # pass's output and its transpose, plus the cached pre and twiddle
+    # tables of each transform (powers and matrix, 4 GiB apiece)
+    print(f"{LDE}: 2^27-row column, LDE 2^29 points, 4 GiB per 2^29-point "
+          f"buffer; about 40 GiB at peak with the tables", flush=True)
+    col = Matrix(ck.rand(1, n))
+    coeffs = col.interpolate(trace_dom)   # warm-up: tables and kernels
+    coeffs.evaluate(lde_dom)
+    torch.cuda.synchronize()
+    reset_counts(build)
+    torch.cuda.reset_peak_memory_stats()
+    lde, ms = timed_once(torch, lambda: col.interpolate(trace_dom)
+                         .evaluate(lde_dom))
+    launches = read_counts(build, LDE_PATH, "the 2^29-point LDE")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del col
+    tntt._TABLE_CACHE.clear()
+    torch.cuda.empty_cache()
+    back = lde_dom.ifft(lde.values)
+    exact = (torch.equal(back[:, :n], coeffs.values)
+             and not back[:, n:].any().item())
+    del back, lde
+    tntt._TABLE_CACHE.clear()
+    torch.cuda.empty_cache()
+    c64 = torch.zeros((1, n), dtype=torch.int64, device=ck.dev)
+    c64[0, :64] = ck.rand(64)
+    evals = Matrix(c64).evaluate(lde_dom).values[0]
+    host = fd.to_ints(c64[0, :64])
+    horner = True
+    for i in (0, 1, 12345, 2 * n + 7, 4 * n - 1):
+        x, acc = lde_dom.element(i).v, 0
+        for c in reversed(host):
+            acc = (acc * x + c) % P
+        horner &= fd.to_ints(evals[i:i + 1])[0] == acc
+    del c64, evals, coeffs
+    tntt._TABLE_CACHE.clear()
+    torch.cuda.empty_cache()
+    print(f"{LDE}: interpolate + evaluate {ms:.3f} ms (device), peak "
+          f"{peak:.2f} GiB; ifft(fft(x)) == x: {exact}; Horner at 5 "
+          f"points: {horner}; launches {launches}", flush=True)
+    if not (exact and horner):
+        fail("the 2^29-point LDE is not exact")
+    return {"device_ms": ms, "peak_device_gib": peak, "launches": launches}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -680,10 +1021,11 @@ def main() -> int:
         from ministark_tpu_torch.models.fib import (FibAirConfig, FibClaim,
                                                     gen_trace)
         from ministark_tpu_torch.ops import (build, deep, eval, inv, ntt,  # noqa: F401
-                                            sha256, transpose)
+                                            rpo256, sha256, transpose)
+        import ministark_tpu_torch.ops.pow  # noqa: F401
     except ImportError as e:
         fail(f"the port is not importable beside this script: {e}")
-    for path in (GOLDEN_FIB, GOLDEN_BF, PROGRAMS):
+    for path in (GOLDEN_FIB, GOLDEN_BF, GOLDEN_RPO, PROGRAMS):
         if not os.path.exists(path):
             fail(f"missing {path}")
     for mod in ("jax", "ministark_tpu"):
@@ -726,8 +1068,22 @@ def main() -> int:
 
     # -- phase 3: kernels against their plain versions -------------------------
     ck = Checker(torch, dev)
-    compare_fib_kernels(ck, fib_air_big)
-    compare_bf_kernels(ck, bf_air_big)
+    with open(os.path.join(PROGRAMS, "hello_world.bf")) as f:
+        hello_rows = simulate(f.read())[0]["processor"].shape[0]
+    hello_air = Air(BrainfuckAirConfig, hello_rows,
+                    BrainfuckClaim("", b"", b""), ProofOptions(*BF_OPTS))
+    compare_fib_kernels(ck, fib_air_big, FIB, FIB_PATH)
+    compare_bf_kernels(ck, bf_air_big, BF, BF_PATH)
+    compare_bf_kernels(ck, hello_air, HELLO, BF_PATH)
+    torch.cuda.empty_cache()
+    compare_fib_kernels(ck, fib_air_big, FIB_RPO, FIB_RPO_PATH)
+    compare_fib_rpo_kernels(ck, fib_air_big)
+    compare_bf_kernels(ck, hello_air, BF_RPO, BF_RPO_PATH)
+    compare_bf_rpo_kernels(ck, hello_air)
+    compare_grind(ck, FIB_RPO, FIB_OPTS[2])
+    compare_grind(ck, BF_RPO, BF_OPTS[2])
+    torch.cuda.empty_cache()
+    compare_lde_kernels(ck)
     torch.cuda.empty_cache()
 
     # -- phase 4: the golden proofs ------------------------------------------
@@ -753,6 +1109,22 @@ def main() -> int:
     counts = read_counts(build, BF_PATH, "the golden brainfuck prove")
     print(f"golden brainfuck proof: byte-identical ({len(data)} bytes); "
           f"launches {counts}", flush=True)
+
+    reset_counts(build)
+    fib_rpo, fib_rpo_trees, _ = rpo_claims()
+    trace = gen_trace(1 << 7)
+    rpo_opts = ProofOptions(8, 4, 3, 4, 4)
+    data = fib_rpo(trace.last_value()).prove(rpo_opts, trace).to_bytes(Fp)
+    with open(GOLDEN_RPO, "rb") as f:
+        if data != f.read():
+            fail("the fully algebraic fib proof differs from "
+                 "tests/golden/fib_2e7_rpo_full.proof")
+    counts = read_counts(build, FIB_RPO_PATH, "the golden RPO fib prove")
+    print(f"golden fully algebraic fib 2^7 proof: byte-identical "
+          f"({len(data)} bytes); launches {counts}", flush=True)
+    claim = fib_rpo_trees(trace.last_value())
+    verify_and_tamper(claim, claim.prove(rpo_opts, trace).to_bytes(Fp), Fp,
+                      Fp, 8, "RPO-tree SHA-coin fib 2^7")
 
     # -- phase 5: the 2^24-value fib prove -------------------------------------
     claim, trace, opts, info = workload("fib")
@@ -787,13 +1159,50 @@ def main() -> int:
                                "the hello_world prove")
     hello["verify_s"] = verify_and_tamper(claim, proof.to_bytes(Fq3), Fp,
                                           Fq3, 96, "hello_world")
-    print(json.dumps({"bf_hello_world": {"card": card, **info, **hello}}),
-          flush=True)
+    print(json.dumps({HELLO: {"card": card, **info, **hello}}), flush=True)
+    del trace, claim, proof
+    torch.cuda.empty_cache()
 
-    # one entry per kernel and path: its shapes, times and launches there
+    # -- phase 8: the fully algebraic fib prove, 2^24 values --------------------
+    claim, trace, opts, info = workload("fib_rpo")
+    proof, fib_rpo_run = prove_timed(torch, build, claim, opts, trace,
+                                     FIB_RPO_PATH, "the RPO fib prove")
+    data = proof.to_bytes(Fp)
+    fib_rpo_run["verify_s"] = verify_and_tamper(claim, data, Fp, Fp, 30,
+                                                "RPO fib 2^24")
+    print(json.dumps({FIB_RPO: {"card": card, **info,
+                                "proof_bytes": len(data), **fib_rpo_run}}),
+          flush=True)
+    del trace, claim, proof
+    torch.cuda.empty_cache()
+
+    # -- phase 9: hello_world with RPO trees and coin ---------------------------
+    claim, trace, opts, info = workload("hello_rpo")
+    del info["output"]
+    proof, hello_rpo = prove_timed(torch, build, claim, opts, trace,
+                                   BF_RPO_PATH, "the RPO hello_world prove")
+    hello_rpo["verify_s"] = verify_and_tamper(
+        claim, proof.to_bytes(Fq3), Fp, Fq3, 96, "RPO hello_world")
+    grind = next(p for p in hello_rpo["phases"] if p["phase"] == "Proof of work")
+    print(f"{BF_RPO}: 20-bit grind on the card {grind['device_ms']:.3f} ms "
+          f"(nonce {proof.pow_nonce})", flush=True)
+    print(json.dumps({BF_RPO: {"card": card, **info, **hello_rpo}}),
+          flush=True)
+    del trace, claim, proof
+    torch.cuda.empty_cache()
+
+    # -- phase 10: the 2^29-point LDE -------------------------------------------
+    lde = lde_2e29(torch, build, ck)
+
+    # one entry per kernel and path: checked at that path's shapes, with
+    # the launches of that path's warm run
     kernels = []
-    for path, names, counts in ((FIB, FIB_PATH, fib["launches"]),
-                                (BF, BF_PATH, bf["launches"])):
+    for path, names, counts in (
+            (FIB, FIB_PATH, fib["launches"]), (BF, BF_PATH, bf["launches"]),
+            (HELLO, BF_PATH, hello["launches"]),
+            (FIB_RPO, FIB_RPO_PATH, fib_rpo_run["launches"]),
+            (BF_RPO, BF_RPO_PATH, hello_rpo["launches"]),
+            (LDE, LDE_PATH, lde["launches"])):
         for name in names:
             k = build.KERNELS[name]
             src = (f"ministark_tpu_torch/csrc/{k.source}" if k.source
@@ -803,7 +1212,8 @@ def main() -> int:
                             "launches": counts[name],
                             **ck.results[(name, path)]})
     if {k["name"] for k in kernels} != set(build.KERNELS):
-        fail("a registered kernel is on neither path")
+        fail("a registered kernel is on no path")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

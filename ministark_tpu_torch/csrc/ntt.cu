@@ -20,7 +20,10 @@
 // contiguous columns for all n1 rows, so the data crosses device memory once
 // per pass, every stage runs in shared memory, and each row load is a
 // contiguous TC * 8-byte segment.  TC is chosen so the tile fills up to
-// 128 KB of shared memory; n1 above 16384 raises in the wrapper.
+// 128 KB of shared memory.
+//
+// Columns longer than 16384 rows do not fit shared memory; they take the
+// multi-pass variant `ms_col_ntt_stage` at the end of this file.
 #include "goldilocks.cuh"
 #include "launch.cuh"
 
@@ -86,5 +89,74 @@ MS_API int ms_col_ntt(const uint64_t* x, uint64_t* y, const uint64_t* tw,
     dim3 grid((unsigned)(C / TC), (unsigned)B);
     col_ntt_kernel<<<grid, 256, smem, stream>>>(x, y, tw, pre, tmat, n1, C,
                                                 (int)log_n1, (int)TC);
+    return ms_last_error();
+}
+
+// The multi-pass column NTT for n1 above the shared-memory tile (transforms
+// of more than 2^28 points): one launch per pass over device memory.
+//
+// Replaces ministark_tpu/ops/ntt_pallas.py `_col_ntt_kernel`, which runs
+// one butterfly stage per grid step.  Same function as col_ntt_kernel:
+// stage 0 gathers x's rows bit-reversed into y (times pre), stages
+// 1..log2(n1) each run one radix-2 DIT stage in place on y with twiddle
+// tw[j * (n1 >> stage)], and the last stage multiplies by tmat.
+//
+// Bound on the card: integer operations for the least work (a multiply and
+// two adds per butterfly, log2(n1) stages, against one read and one write
+// of every element), but this kernel makes log2(n1) + 1 passes over device
+// memory at 16 bytes an element each, so its passes, not its arithmetic,
+// set its time.  Design: one thread per butterfly, the column index
+// fastest, so a warp's loads are contiguous row segments; simple and right
+// first (a later kernel can keep several stages in shared memory per pass).
+__global__ void col_ntt_stage_kernel(const uint64_t* __restrict__ x,
+                                     uint64_t* __restrict__ y,
+                                     const uint64_t* __restrict__ tw,
+                                     const uint64_t* __restrict__ pre,
+                                     const uint64_t* __restrict__ tmat,
+                                     int64_t B, int64_t n1, int64_t C,
+                                     int log_n1, int stage) {
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (stage == 0) {
+        for (; k < B * n1 * C; k += stride) {
+            int64_t q = k / C, c = k - q * C;
+            int64_t r = q & (n1 - 1), b = q >> log_n1;
+            int64_t src = bitrev((uint32_t)r, log_n1);
+            uint64_t v = x[(b * n1 + src) * C + c];
+            if (pre) v = gl_mul(v, pre[src * C + c]);
+            if (log_n1 == 0 && tmat) v = gl_mul(v, tmat[c]);
+            y[k] = v;
+        }
+        return;
+    }
+    const int64_t half = 1LL << (stage - 1);
+    const int64_t tstride = n1 >> stage;
+    const bool last = stage == log_n1 && tmat != nullptr;
+    for (; k < B * (n1 >> 1) * C; k += stride) {
+        int64_t q = k / C, c = k - q * C;
+        int64_t bf = q & ((n1 >> 1) - 1), b = q >> (log_n1 - 1);
+        int64_t j = bf & (half - 1);
+        int64_t i0 = ((bf - j) << 1) + j, i1 = i0 + half;
+        uint64_t* yb = y + b * n1 * C;
+        uint64_t u = yb[i0 * C + c];
+        uint64_t v = gl_mul(yb[i1 * C + c], tw[j * tstride]);
+        uint64_t lo = gl_add(u, v), hi = gl_sub(u, v);
+        if (last) {
+            lo = gl_mul(lo, tmat[i0 * C + c]);
+            hi = gl_mul(hi, tmat[i1 * C + c]);
+        }
+        yb[i0 * C + c] = lo;
+        yb[i1 * C + c] = hi;
+    }
+}
+
+MS_API int ms_col_ntt_stage(const uint64_t* x, uint64_t* y,
+                            const uint64_t* tw, const uint64_t* pre,
+                            const uint64_t* tmat, int64_t B, int64_t n1,
+                            int64_t C, int64_t log_n1, int64_t stage,
+                            cudaStream_t stream) {
+    int64_t work = stage == 0 ? B * n1 * C : B * (n1 >> 1) * C;
+    col_ntt_stage_kernel<<<ms_blocks(work, 256), 256, 0, stream>>>(
+        x, y, tw, pre, tmat, B, n1, C, (int)log_n1, (int)stage);
     return ms_last_error();
 }

@@ -92,14 +92,34 @@ def mul(a: torch.Tensor, b) -> torch.Tensor:
     """Goldilocks product: 2^64 = 2^32 - 1 and 2^96 = -1 (mod p)."""
     if not isinstance(b, torch.Tensor):
         b = torch.tensor(to_i64(b), dtype=I64, device=a.device)
-    hi, lo = _mul_wide(a, b)
+    return canonicalize(mul_lazy(a, b))
+
+
+def mul_lazy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b as some u64 representative mod p, not reduced into [0, p):
+    for chains of products (any u64 pattern is a valid input)."""
+    return _reduce128_lazy(*_mul_wide(a, b))
+
+
+def sqr_lazy(a: torch.Tensor) -> torch.Tensor:
+    """a * a like ``mul_lazy``, with the cross product formed once."""
+    a_lo = a & _MASK32
+    a_hi = _srl32(a)
+    ll = a_lo * a_lo
+    lh = a_lo * a_hi
+    mid = _srl32(ll) + ((lh & _MASK32) << 1)
+    lo = (ll & _MASK32) | (mid << 32)
+    hi = a_hi * a_hi + (_srl32(lh) << 1) + (mid >> 32)
+    return _reduce128_lazy(hi, lo)
+
+
+def _reduce128_lazy(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """hi * 2^64 + lo (u64 patterns) as a u64 representative mod p."""
     hi_hi = _srl32(hi)
-    hi_lo = hi & _MASK32
     t = lo - hi_hi
-    t = t - _ult(lo, hi_hi).to(I64) * _EPS
-    s = t + hi_lo * _EPS
-    s = s + _ult(s, t).to(I64) * _EPS
-    return canonicalize(s)
+    t = torch.where(_ult(lo, hi_hi), t - _EPS, t)  # borrow: -2^64 = -EPS
+    s = t + (hi & _MASK32) * _EPS
+    return torch.where(_ult(s, t), s + _EPS, s)    # carry: 2^64 = EPS
 
 
 def pow_const(a: torch.Tensor, e: int) -> torch.Tensor:

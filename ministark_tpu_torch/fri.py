@@ -12,10 +12,10 @@ Protocol facts replicated exactly (they affect proof bytes):
 
 The prover runs one layer at a time with the host coin between layers:
 NTTs through kernels B and C, the fold in plain PyTorch, row hashes and
-tree levels through kernel D.  An Fq3 codeword is a (3, n) tensor; its
-layer rows of N elements serialize each element as c0 || c1 || c2, so a
-layer is kept as an (N, 3, n/N) Fq3 matrix and hashed as one.  The
-verifier half is exact host scalar math.
+tree levels through kernel D (SHA-256 trees) or G (RPO-256 trees).  An
+Fq3 codeword is a (3, n) tensor; its layer rows of N elements serialize
+each element as c0 || c1 || c2, so a layer is kept as an (N, 3, n/N) Fq3
+matrix and hashed as one.  The verifier half is exact host scalar math.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ from .fields import device as fd
 from .fields.scalar import Fp, Fq3, P, get_root_of_unity
 from .merkle import MerkleView
 from .ntt import Domain, bit_reverse_index, permute_bitrev
-from .ops import sha256 as ksha
 
 
 @dataclass(frozen=True)
@@ -108,10 +107,11 @@ class _Layer:
 
 class FriProver:
     """Builds FRI layers from the DEEP composition LDE, natural order: (n,)
-    in Fp or (3, n) in Fq3."""
+    in Fp or (3, n) in Fq3; `hashfn` is the layer trees' hash."""
 
-    def __init__(self, options: FriOptions):
+    def __init__(self, options: FriOptions, hashfn=merkle.H):
         self.options = options
+        self.hashfn = hashfn
         self.layers: list[_Layer] = []
         self.remainder_coeffs: list = []
 
@@ -126,13 +126,15 @@ class FriProver:
 
     def _build_layer(self, channel, evals, n: int, N: int):
         bitrev = permute_bitrev(evals)
+        dh = merkle.device_hash(self.hashfn)
         if evals.ndim == 1:
             rows = bitrev.reshape(n // N, N)
-            digests = ksha.hash_rows(rows)
+            digests = dh.hash_rows(rows)
         else:
             rows = bitrev.reshape(3, n // N, N).permute(2, 0, 1).contiguous()
-            digests = ksha.hash_rows_ext3(rows)
-        tree = merkle.CommittedMerkleTree.from_leaf_digests(digests)
+            digests = dh.hash_rows_ext3(rows)
+        tree = merkle.CommittedMerkleTree.from_leaf_digests(digests,
+                                                            self.hashfn)
         channel.commit_fri_layer(tree.root())
         self.layers.append(_Layer(tree, rows))
         alpha = channel.draw_fri_alpha()
@@ -199,9 +201,10 @@ def get_query_values(rows: list, positions: list[int], folded_positions: list[in
 
 class FriVerifier:
     def __init__(self, public_coin, options: FriOptions, proof: FriProof,
-                 max_poly_degree: int):
+                 max_poly_degree: int, hashfn=merkle.H):
         self.options = options
         self.proof = proof
+        self.hashfn = hashfn
         domain_size = _next_pow2(max_poly_degree + 1) * options.blowup_factor
         self.domain_size = domain_size
         self.domain_generator = get_root_of_unity(domain_size).v
@@ -245,7 +248,7 @@ class FriVerifier:
 
             try:
                 merkle.verify_rows(commitment, folded, rows,
-                                   layer.merkle_proof)
+                                   layer.merkle_proof, self.hashfn)
             except merkle.InvalidProof as e:
                 raise VerificationError(f"layer {i} commitment invalid") from e
 

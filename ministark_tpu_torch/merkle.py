@@ -1,12 +1,19 @@
-"""Merkle commitments: batched SHA-256 tree build on torch tensors plus host
+"""Merkle commitments: batched tree build on torch tensors plus host
 multi-proofs (reference: src/merkle.rs; mirrors ``ministark_tpu.merkle``).
+
+A tree hashes with SHA-256 (``hash``, the default) or RPO-256
+(``hash_rpo``), the reference's MerkleTree associated type: `hashfn` is the
+host module, and ``device_hash`` gives its batched device counterpart
+(``ops.sha256`` or ``ops.rpo256``, the same interface).
 
 Levels are stored in TREE-BITREV order, as the JAX package's lanes path
 stores them: storage row p of a level holds node bitrev(p), so the two
 children of every node sit in the two contiguous halves of the level below
 and each level is one merge of two halves.  For the protocol's bit-reversed
 leaf order the natural row digests ARE that storage.  Digests are
-(m, 32) uint8 tensors; only roots and queried nodes reach the host.
+(m, 32) uint8 tensors (an RPO digest's four elements in little-endian
+bytes, ``hash_rpo._digest_bytes``); only roots and queried nodes reach the
+host.
 """
 
 from __future__ import annotations
@@ -16,8 +23,24 @@ from dataclasses import dataclass
 import torch
 
 from . import hash as H
+from . import hash_rpo
 from .ntt import bit_reverse_index, permute_bitrev
+from .ops import rpo256 as krpo
 from .ops import sha256 as ksha
+
+_DEVICE_HASH = {H: ksha, hash_rpo: krpo}
+
+
+def device_hash(hashfn):
+    """The batched device module of host hash `hashfn`: ``hash_rows``,
+    ``hash_rows_ext3`` and ``merge`` over (n, 32) uint8 digests, and
+    ``grind(seed, bits, device)``, a coin's proof-of-work search on the
+    device (None where the coin grinds on the host)."""
+    try:
+        return _DEVICE_HASH[hashfn]
+    except KeyError:
+        raise ValueError(f"no device hash for {hashfn!r}: use the port's "
+                         f"hash (SHA-256) or hash_rpo (RPO-256)") from None
 
 
 @dataclass
@@ -39,14 +62,15 @@ class MerkleView:
         return MerkleView(r.digest_vec(), r.digest_vec(), r.digest_vec(), r.u32())
 
 
-def tree_levels(storage: torch.Tensor) -> list[torch.Tensor]:
+def tree_levels(storage: torch.Tensor, hashfn=H) -> list[torch.Tensor]:
     """All levels from leaf digests in tree-bitrev storage order: each level
     merges its two contiguous halves (one kernel launch per level)."""
+    merge = device_hash(hashfn).merge
     levels = [storage]
     cur = storage
     while cur.shape[0] > 1:
         half = cur.shape[0] // 2
-        cur = ksha.merge(cur[:half], cur[half:])
+        cur = merge(cur[:half], cur[half:])
         levels.append(cur)
     return levels
 
@@ -55,16 +79,19 @@ class CommittedMerkleTree:
     """A built tree whose levels stay on the device; decommits fetch the
     needed nodes with one gather per level."""
 
-    def __init__(self, levels: list[torch.Tensor]):
+    def __init__(self, levels: list[torch.Tensor], hashfn=H):
         self.levels = levels
+        self.hashfn = hashfn
         self.n = int(levels[0].shape[0])
         assert self.n & (self.n - 1) == 0 and self.n >= 2
         self._root = None
 
     @staticmethod
-    def from_leaf_digests(leaves: torch.Tensor) -> "CommittedMerkleTree":
+    def from_leaf_digests(leaves: torch.Tensor,
+                          hashfn=H) -> "CommittedMerkleTree":
         """Leaves given in leaf order -> tree-bitrev storage (one permute)."""
-        return CommittedMerkleTree(tree_levels(permute_bitrev(leaves, dim=0)))
+        return CommittedMerkleTree(
+            tree_levels(permute_bitrev(leaves, dim=0), hashfn), hashfn)
 
     @property
     def height(self) -> int:
@@ -145,7 +172,7 @@ class CommittedMerkleTree:
             # flat == 0 only occurs for the degenerate 2-leaf tree, where the
             # reference emits its default (all-zero) digest for the unused slot
             if flat == 0:
-                return H.ZERO_DIGEST
+                return self.hashfn.ZERO_DIGEST
             depth = flat.bit_length() - 1
             return got[(self.height - depth, flat - (1 << depth))]
 
@@ -157,17 +184,20 @@ class CommittedMerkleTree:
         )
 
 
-def commit_matrix(values: torch.Tensor) -> CommittedMerkleTree:
+def commit_matrix(values: torch.Tensor, hashfn=H) -> CommittedMerkleTree:
     """Commit to an Fp matrix (ncols, n) whose columns are in NATURAL domain
     order; leaves follow the protocol's bit-reversed row order, whose
     tree-bitrev storage is the natural row digests themselves."""
-    return CommittedMerkleTree(tree_levels(ksha.hash_rows(values.T)))
+    leaves = device_hash(hashfn).hash_rows(values.T)
+    return CommittedMerkleTree(tree_levels(leaves, hashfn), hashfn)
 
 
-def commit_matrix_ext3(values: torch.Tensor) -> CommittedMerkleTree:
+def commit_matrix_ext3(values: torch.Tensor, hashfn=H) -> CommittedMerkleTree:
     """The same for an Fq3 matrix (ncols, 3, n): each row serializes its
-    elements as c0 || c1 || c2 (merkle.py:96-101 of the JAX package)."""
-    return CommittedMerkleTree(tree_levels(ksha.hash_rows_ext3(values)))
+    elements as c0 || c1 || c2 (merkle.py:96-101 of the JAX package), and
+    RPO absorbs them in that order (merkle.py:173-189)."""
+    leaves = device_hash(hashfn).hash_rows_ext3(values)
+    return CommittedMerkleTree(tree_levels(leaves, hashfn), hashfn)
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +214,8 @@ _NATIVE_VIEW_ERRS = {
     6: "missing node", 7: "proof did not reach root"}
 
 
-def verify_view(root: bytes, proof: MerkleView, indices: list[int]) -> None:
+def verify_view(root: bytes, proof: MerkleView, indices: list[int],
+                hashfn=H) -> None:
     height = proof.height
     n = 1 << height
     for i in indices:
@@ -194,13 +225,14 @@ def verify_view(root: bytes, proof: MerkleView, indices: list[int]) -> None:
     if len(idx) != len(proof.initial_leaves):
         raise InvalidProof("wrong number of leaves")
 
-    from . import native
-    rc = native.mk_verify_view(root, height, idx, proof.initial_leaves,
-                               proof.sibling_leaves, proof.nodes)
-    if rc is not None:
-        if rc != 0:
-            raise InvalidProof(_NATIVE_VIEW_ERRS[rc])
-        return
+    if hashfn is H:  # the native view check speaks SHA-256 only
+        from . import native
+        rc = native.mk_verify_view(root, height, idx, proof.initial_leaves,
+                                   proof.sibling_leaves, proof.nodes)
+        if rc is not None:
+            if rc != 0:
+                raise InvalidProof(_NATIVE_VIEW_ERRS[rc])
+            return
 
     siblings = list(proof.sibling_leaves)
     si = 0
@@ -212,14 +244,16 @@ def verify_view(root: bytes, proof: MerkleView, indices: list[int]) -> None:
         qi += 1
         node_index = (n + index) >> 1
         if qi < len(leaf_queue) and leaf_queue[qi][0] == index ^ 1:
-            node_queue.append((node_index, H.merge(leaf, leaf_queue[qi][1])))
+            node_queue.append((node_index,
+                               hashfn.merge(leaf, leaf_queue[qi][1])))
             qi += 1
             continue
         if si >= len(siblings):
             raise InvalidProof("missing sibling leaf")
         sib = siblings[si]
         si += 1
-        h = H.merge(leaf, sib) if index % 2 == 0 else H.merge(sib, leaf)
+        h = (hashfn.merge(leaf, sib) if index % 2 == 0
+             else hashfn.merge(sib, leaf))
         node_queue.append((node_index, h))
     if si != len(siblings):
         raise InvalidProof("extra sibling leaves")
@@ -237,26 +271,26 @@ def verify_view(root: bytes, proof: MerkleView, indices: list[int]) -> None:
                 raise InvalidProof("root mismatch")
             return
         if qn < len(node_queue) and node_queue[qn][0] == index ^ 1:
-            node_queue.append((index >> 1, H.merge(h, node_queue[qn][1])))
+            node_queue.append((index >> 1, hashfn.merge(h, node_queue[qn][1])))
             qn += 1
             continue
         if ni >= len(nodes):
             raise InvalidProof("missing node")
         sib = nodes[ni]
         ni += 1
-        nh = H.merge(h, sib) if index % 2 == 0 else H.merge(sib, h)
+        nh = hashfn.merge(h, sib) if index % 2 == 0 else hashfn.merge(sib, h)
         node_queue.append((index >> 1, nh))
     raise InvalidProof("proof did not reach root")
 
 
 def verify_rows(root: bytes, row_ids: list[int], rows: list,
-                proof: MerkleView) -> None:
+                proof: MerkleView, hashfn=H) -> None:
     """Verify matrix rows: dedupe/sort by id, hash each row with
     hash_elements, compare to initial leaves, then verify paths
     (src/merkle.rs:363-385)."""
     inst = sorted({rid: row for rid, row in zip(row_ids, rows)}.items())
     indices = [rid for rid, _ in inst]
-    leaves = [H.hash_elements(row) for _, row in inst]
+    leaves = [hashfn.hash_elements(row) for _, row in inst]
     if leaves != proof.initial_leaves:
         raise InvalidProof("row hash mismatch")
-    verify_view(root, proof, indices)
+    verify_view(root, proof, indices, hashfn)

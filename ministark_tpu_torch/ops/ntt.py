@@ -8,7 +8,10 @@ transformed along n1 with
     all log2(n1) radix-2 DIT stages with tw[k] = w^k, k < n1/2,
     output canonical (times tmat[row, c] when given),
 
-where `pre` and `tmat` are (n1, C) tables shared by every batch.
+where `pre` and `tmat` are (n1, C) tables shared by every batch.  Columns
+of up to ``SMEM_ELEMS`` rows run kernel B, one launch with every stage in
+shared memory; longer ones (transforms of more than 2^28 points) run the
+multi-pass kernel, one launch per stage over device memory.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ from . import build
 KERNEL = build.register(
     "ntt", "ntt.cu",
     replaces="ministark_tpu/ops/ntt_pallas.py:137 _col_ntt_kernel_unrolled")
+KERNEL_STAGE = build.register(
+    "ntt_stage", "ntt.cu",
+    replaces="ministark_tpu/ops/ntt_pallas.py:94 _col_ntt_kernel")
 
 # Largest tile of one block: n1 rows x TC columns of u64 in shared memory.
 SMEM_ELEMS = 16384
@@ -62,19 +68,11 @@ def col_ntt_plain(x, tw, pre=None, tmat=None):
     return x
 
 
-def col_ntt(x, tw, pre=None, tmat=None):
-    """See the module docstring.  CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
-    if not x.is_cuda:
-        return col_ntt_plain(x, tw, pre, tmat)
+def _check(x, tw, pre, tmat):
+    """Validate a CUDA launch's arguments; returns (x, tw) ready for it."""
     B, n1, C = x.shape
     if n1 & (n1 - 1):
         raise ValueError(f"column length {n1} is not a power of two")
-    if n1 > SMEM_ELEMS:
-        raise ValueError(f"column length {n1} exceeds the shared-memory "
-                         f"NTT kernel's limit {SMEM_ELEMS}")
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the kernel's grid")
     x = x.contiguous()
     build.check_cuda(x, name="x")
     tw = tw.contiguous() if tw.numel() else torch.ones(1, dtype=torch.int64,
@@ -85,6 +83,20 @@ def col_ntt(x, tw, pre=None, tmat=None):
     for name, t in (("pre", pre), ("tmat", tmat)):
         if t is not None and tuple(t.shape) != (n1, C):
             raise ValueError(f"{name} must be ({n1}, {C}), got {tuple(t.shape)}")
+    return x, tw
+
+
+def col_ntt(x, tw, pre=None, tmat=None):
+    """See the module docstring.  CUDA tensors launch a kernel; CPU
+    tensors take the plain version."""
+    if not x.is_cuda:
+        return col_ntt_plain(x, tw, pre, tmat)
+    B, n1, C = x.shape
+    if n1 > SMEM_ELEMS:
+        return col_ntt_staged(x, tw, pre, tmat)
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the kernel's grid")
+    x, tw = _check(x, tw, pre, tmat)
     # columns per block: a power of two that fits shared memory and divides C
     TC = math.gcd(C, SMEM_ELEMS // n1)
     y = torch.empty_like(x)
@@ -92,4 +104,22 @@ def col_ntt(x, tw, pre=None, tmat=None):
     KERNEL.launch("ms_col_ntt", build.ptr(x), build.ptr(y), build.ptr(tw),
                   null(pre), null(tmat), build.i64(B), build.i64(n1),
                   build.i64(C), build.i64(n1.bit_length() - 1), build.i64(TC))
+    return y
+
+
+def col_ntt_staged(x, tw, pre=None, tmat=None):
+    """The same function on a CUDA tensor by the multi-pass kernel: a
+    bit-reversing gather (times `pre`) into a new tensor, then one launch
+    per radix-2 stage in place on it, `tmat` folded into the last.
+    ``col_ntt`` takes it for columns longer than ``SMEM_ELEMS``."""
+    x, tw = _check(x, tw, pre, tmat)
+    B, n1, C = x.shape
+    log_n1 = n1.bit_length() - 1
+    y = torch.empty_like(x)
+    null = build.ptr_or_null
+    for stage in range(log_n1 + 1):
+        KERNEL_STAGE.launch("ms_col_ntt_stage", build.ptr(x), build.ptr(y),
+                            build.ptr(tw), null(pre), null(tmat),
+                            build.i64(B), build.i64(n1), build.i64(C),
+                            build.i64(log_n1), build.i64(stage))
     return y

@@ -19,6 +19,10 @@ KERNEL_EXT3 = build.register(
     "sha256_ext3", "sha256.cu",
     replaces="ministark_tpu/ops/sha256_pallas.py:171 hash_rows_ext3_lanes")
 
+# no device grind: SHA-256 coins grind on the host
+# (``random.PublicCoin.grind_proof_of_work``)
+grind = None
+
 _K = (
     0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
     0x923F82A4, 0xAB1C5ED5, 0xD807AA98, 0x12835B01, 0x243185BE, 0x550C7DC3,

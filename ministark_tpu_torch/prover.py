@@ -1,7 +1,9 @@
 """The proving pipeline (reference: src/prover.rs `default_prove`; mirrors
-``ministark_tpu.prover._default_prove`` with SHA-256 trees, for Fp AIRs
-(fib) and AIRs over the cubic extension Fq3 (brainfuck), whose extension
-trace, composition trace, OOD points and FRI codewords are Fq3).
+``ministark_tpu.prover._default_prove``) for Fp AIRs (fib) and AIRs over
+the cubic extension Fq3 (brainfuck), whose extension trace, composition
+trace, OOD points and FRI codewords are Fq3.  The Merkle trees hash with
+the Stark's `merkle_hash` and the public coin with its `coin_hash`: SHA-256
+(``hash``) or RPO-256 (``hash_rpo``) each.
 
 Every matrix stays in NATURAL domain order on the device holding the
 witness; bit-reversed order exists only at commitment and query time.  The
@@ -14,7 +16,6 @@ round trip, and a local card has no such cost.  The bytes are the same.
 
 from __future__ import annotations
 
-from . import hash as H
 from . import merkle
 from .air import Challenges, ProofOptions
 from .channel import ProverChannel
@@ -31,9 +32,7 @@ def default_prove(stark, options: ProofOptions, witness,
                   phase_log: list | None = None) -> Proof:
     """Prove on the device of the witness's trace.  `phase_log`, when
     given, receives one {"phase", "host_ms", "device_ms"} record per phase."""
-    if stark.merkle_hash is not H or stark.coin_hash is not H:
-        raise NotImplementedError("only SHA-256 trees and coin are ported")
-
+    hashfn = stark.merkle_hash  # the reference's MerkleTree associated type
     trace = stark.generate_trace(witness)
     base_trace = trace.base_columns()
     dev = base_trace.device
@@ -53,7 +52,7 @@ def default_prove(stark, options: ProofOptions, witness,
         assert air.config.NUM_BASE_COLUMNS == base_trace.num_cols
         base_polys = base_trace.interpolate(trace_dom)
         base_lde = base_polys.evaluate(lde_dom)
-        base_tree = merkle.commit_matrix(base_lde.values)
+        base_tree = merkle.commit_matrix(base_lde.values, hashfn)
         channel.commit_base_trace(base_tree.root())
 
     challenges = Challenges(channel.public_coin.draw_multiple(air.num_challenges()))
@@ -68,7 +67,7 @@ def default_prove(stark, options: ProofOptions, witness,
         if ext_trace is not None:
             ext_polys = ext_trace.interpolate(trace_dom)
             ext_lde = ext_polys.evaluate(lde_dom)
-            ext_tree = merkle.commit_matrix_ext3(ext_lde.values)
+            ext_tree = merkle.commit_matrix_ext3(ext_lde.values, hashfn)
             channel.commit_extension_trace(ext_tree.root())
 
     # -- phase 3: composition trace (src/prover.rs:78-131) -------------------
@@ -93,11 +92,11 @@ def default_prove(stark, options: ProofOptions, witness,
             comp_polys = MatrixExt3(coeffs.reshape(3, air.trace_len, cb)
                                     .permute(2, 0, 1).contiguous())
             comp_lde = comp_polys.evaluate(lde_dom)
-            comp_tree = merkle.commit_matrix_ext3(comp_lde.values)
+            comp_tree = merkle.commit_matrix_ext3(comp_lde.values, hashfn)
         else:
             comp_polys = Matrix(coeffs.reshape(air.trace_len, cb).T.contiguous())
             comp_lde = comp_polys.evaluate(lde_dom)
-            comp_tree = merkle.commit_matrix(comp_lde.values)
+            comp_tree = merkle.commit_matrix(comp_lde.values, hashfn)
         channel.commit_composition_trace(comp_tree.root())
 
     # -- phase 4: DEEP composition (src/prover.rs:133-149) -------------------
@@ -114,13 +113,17 @@ def default_prove(stark, options: ProofOptions, witness,
         fri_prover = FriProver(FriOptions(
             folding_factor=options.fri_folding_factor,
             max_remainder_coeffs=options.fri_max_remainder_coeffs,
-            blowup_factor=options.lde_blowup_factor))
+            blowup_factor=options.lde_blowup_factor), hashfn)
         fri_prover.build_layers(channel, deep_lde)
 
     # -- phase 6: PoW + queries (src/prover.rs:157-173) ----------------------
     with timer("Proof of work"):
-        # the host grind (native C++ when available): smallest valid nonce
-        channel.grind_fri_commitments()
+        # smallest valid nonce, on the device where the coin's hash has a
+        # device grind (RPO-256), else on the host (SHA-256)
+        grind = merkle.device_hash(channel.public_coin.hashfn).grind
+        channel.grind_fri_commitments(
+            None if grind is None
+            else lambda seed, bits: grind(seed, bits, dev))
     query_positions = channel.get_fri_query_positions()
 
     with timer("FRI decommit"):

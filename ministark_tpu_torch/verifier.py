@@ -1,5 +1,5 @@
 """STARK verifier — pure host scalar math (reference: src/verifier.rs;
-mirrors ``ministark_tpu.verifier`` for SHA-256 trees).  Shares no compute
+mirrors ``ministark_tpu.verifier``).  Shares no compute
 code with the prover: it re-derives everything from the proof bytes and
 the public inputs."""
 
@@ -22,12 +22,11 @@ class VerificationError(Exception):
 
 def default_verify(stark, proof: Proof, required_security_bits: int):
     fq = stark.fq
-    from . import hash as H
-    if stark.merkle_hash is not H or stark.coin_hash is not H:
-        raise NotImplementedError("only SHA-256 trees and coin are ported")
+    hashfn = stark.merkle_hash
     if proof.security_level_bits(
-            fq, merkle_security=H.COLLISION_RESISTANCE,
-            coin_security=H.COLLISION_RESISTANCE) < required_security_bits:
+            fq, merkle_security=hashfn.COLLISION_RESISTANCE,
+            coin_security=stark.coin_hash.COLLISION_RESISTANCE
+    ) < required_security_bits:
         raise VerificationError("proof params do not satisfy security requirements")
 
     options = proof.options
@@ -62,7 +61,7 @@ def default_verify(stark, proof: Proof, required_security_bits: int):
         max_remainder_coeffs=options.fri_max_remainder_coeffs,
         blowup_factor=options.lde_blowup_factor)
     fri_verifier = FriVerifier(coin, fri_options, proof.fri_proof,
-                               proof.trace_len - 1)
+                               proof.trace_len - 1, hashfn)
 
     if options.grinding_factor != 0:
         if not coin.verify_proof_of_work(options.grinding_factor, proof.pow_nonce):
@@ -81,21 +80,22 @@ def default_verify(stark, proof: Proof, required_security_bits: int):
 
     try:
         merkle.verify_rows(proof.base_trace_commitment, query_positions,
-                           base_rows, q.base_trace_proof)
+                           base_rows, q.base_trace_proof, hashfn)
     except merkle.InvalidProof as e:
         raise VerificationError("query does not resolve to the base trace commitment") from e
 
     if proof.extension_trace_commitment is not None:
         try:
-            merkle.verify_rows(proof.extension_trace_commitment, query_positions,
-                               ext_rows, q.extension_trace_proof)
+            merkle.verify_rows(proof.extension_trace_commitment,
+                               query_positions, ext_rows,
+                               q.extension_trace_proof, hashfn)
         except merkle.InvalidProof as e:
             raise VerificationError(
                 "query does not resolve to the extension trace commitment") from e
 
     try:
         merkle.verify_rows(proof.composition_trace_commitment, query_positions,
-                           comp_rows, q.composition_trace_proof)
+                           comp_rows, q.composition_trace_proof, hashfn)
     except merkle.InvalidProof as e:
         raise VerificationError(
             "query does not resolve to the composition trace commitment") from e

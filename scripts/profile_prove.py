@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of one warm prove goes, on one GPU.
 
-    python3 scripts/profile_prove.py [fib|bf|hello ...]
+    python3 scripts/profile_prove.py [fib|bf|hello|fib_rpo|hello_rpo ...]
 
 For each workload (default: all three) it proves once cold and twice warm,
 then runs one more warm prove under ``torch.profiler`` (CPU and CUDA
@@ -11,8 +11,9 @@ share of the wall, the device time per kernel name (top 15, summed over
 launches) and the hand-written kernels' share of the device time.  The
 workloads are chip_smoke.py's own (``chip_smoke.workload``): fib at 2^24
 values (bench.py's options), ``programs/fibonacci.bf`` cut to ten numbers
-(2^20 rows) and ``programs/hello_world.bf``, both with the 96-bit options.
-Needs a card.
+(2^20 rows) and ``programs/hello_world.bf``, both with the 96-bit options,
+and the same fib and hello_world with RPO-256 trees and coin (``fib_rpo``,
+``hello_rpo``; not in the default set).  Needs a card.
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # symbols of the hand-written kernels (csrc/*.cu and the generated evaluator)
 OWN_KERNELS = ("inv_fp_kernel", "inv_ext3_kernel", "col_ntt_kernel",
-               "transpose_kernel", "hash_rows_kernel", "merge_kernel",
-               "ms_eval_kernel", "deep_kernel", "deep_ext3_kernel")
+               "col_ntt_stage_kernel", "transpose_kernel", "hash_rows_kernel",
+               "merge_kernel", "ms_eval_kernel", "deep_kernel",
+               "deep_ext3_kernel", "rpo_grind_kernel")
 
 
 def busy_ms(intervals) -> float:

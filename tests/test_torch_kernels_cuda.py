@@ -16,7 +16,8 @@ pytestmark = pytest.mark.cuda
 
 P = 0xFFFFFFFF00000001
 KERNELS = ["inv", "ntt", "transpose", "sha256", "eval", "deep", "inv_ext3",
-           "sha256_ext3", "eval_ext3", "deep_ext3"]
+           "sha256_ext3", "eval_ext3", "deep_ext3", "ntt_stage", "rpo256",
+           "rpo256_grind"]
 
 
 @pytest.fixture
@@ -77,10 +78,59 @@ def test_kernel_matches_plain_on_card(dev, kernel):
         x, pre = _rand((2, 4096, 6), 4), _rand((4096, 6), 5)
         _same(torch, kntt.col_ntt(x.to(dev), tw.to(dev), pre=pre.to(dev)),
               kntt.col_ntt_plain(x, tw, pre=pre))
-        with pytest.raises(ValueError):
-            kntt.col_ntt(torch.zeros((1, 1 << 15, 1), dtype=torch.int64,
-                                     device=dev),
-                         torch.ones(1 << 14, dtype=torch.int64, device=dev))
+    elif kernel == "ntt_stage":
+        from ministark_tpu_torch.fields.scalar import get_root_of_unity
+        from ministark_tpu_torch.ntt import powers
+        from ministark_tpu_torch.ops import ntt as kntt
+
+        # columns longer than shared memory take the multi-pass kernel
+        n1 = 1 << 15
+        tw = powers(get_root_of_unity(n1).v, n1 // 2, "cpu")
+        x, pre, tmat = _rand((2, n1, 3), 6), _rand((n1, 3), 7), _rand((n1, 3), 8)
+        _same(torch, kntt.col_ntt(x.to(dev), tw.to(dev), pre=pre.to(dev),
+                                  tmat=tmat.to(dev)),
+              kntt.col_ntt_plain(x, tw, pre=pre, tmat=tmat))
+        # and short ones too, when asked, against the plain version
+        for n1, C in ((1, 2), (2, 5), (256, 6)):
+            tw = powers(get_root_of_unity(n1).v, max(n1 // 2, 1), "cpu")
+            x, tmat = _rand((3, n1, C), n1), _rand((n1, C), C)
+            _same(torch, kntt.col_ntt_staged(x.to(dev), tw.to(dev),
+                                             tmat=tmat.to(dev)),
+                  kntt.col_ntt_plain(x, tw[:n1 // 2], tmat=tmat))
+    elif kernel == "rpo256":
+        from ministark_tpu_torch.fields.convert import from_u64_numpy
+        from ministark_tpu_torch.ops import rpo256 as krpo
+
+        # one permutation of [0, 0, 0, 0 | row] per row of 8, rows of the
+        # boundary values 0, 1, p - 1 and 2^32 +- 1 among them
+        edge = np.array([0, 1, P - 1, (1 << 32) - 1, (1 << 32) + 1], np.uint64)
+        v = np.random.default_rng(30).integers(0, P, (300, 8), dtype=np.uint64)
+        v[:5] = edge[:, None]
+        v[5:10] = np.resize(edge, (5, 8))
+        rows = from_u64_numpy(v).to(dev)
+        _same(torch, krpo.hash_rows(rows), krpo.hash_rows_plain(rows))
+        for ncols, n in ((1, 5), (8, 300), (9, 64), (17, 33)):
+            m = _rand((ncols, n), ncols * n).to(dev)
+            _same(torch, krpo.hash_rows(m.T), krpo.hash_rows_plain(m.T))
+            rows = m.reshape(n, ncols)
+            _same(torch, krpo.hash_rows(rows), krpo.hash_rows_plain(rows))
+        for ncols, n in ((1, 5), (3, 64), (16, 40)):
+            m = _rand((ncols, 3, n), ncols + n).to(dev)
+            _same(torch, krpo.hash_rows_ext3(m), krpo.hash_rows_ext3_plain(m))
+        d = torch.randint(0, 256, (200, 32), dtype=torch.uint8, device=dev)
+        _same(torch, krpo.merge(d[:100], d[100:]),
+              krpo.merge_plain(d[:100], d[100:]))
+    elif kernel == "rpo256_grind":
+        from ministark_tpu_torch.ops import pow as kpow
+
+        seed = kpow.seed_elements(bytes(range(32)), dev)
+        for start in (1, (1 << 32) - 100):
+            lz = torch.empty(1000, dtype=torch.int32, device=dev)
+            got = kpow.grind_batch(seed, start, 1000, 6, lz=lz)
+            _same(torch, lz, kpow.leading_zeros_plain(seed, start, 1000))
+            assert got == kpow.grind_batch_plain(seed, start, 1000, 6)
+        assert kpow.grind_rpo(bytes(range(32)), 6, dev) == kpow.grind_rpo(
+            bytes(range(32)), 6, "cpu")
     elif kernel == "transpose":
         from ministark_tpu_torch.ops import transpose as ktr
 
