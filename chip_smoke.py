@@ -27,10 +27,14 @@ RPO grind), and a 2^29-point coset LDE (the multi-pass column NTT).  Phases, any
      second; integer field math, so the tolerance is exact equality;
      print the kernel's time, the plain version's, the bound (the least time the
      card could take) and, where one PyTorch call computes the same
-     function, its time.  The plain RPO permutation is some 16,000
-     elementwise launches, so at the fib path's shapes it is compared on a
-     2^18-state sample of the same inputs (the line says so) while the
-     kernel is timed at the full shape;
+     function, its time.  At hello_world's shapes the ntt and transpose
+     kernels (and the strided copy the transpose is held against) are
+     timed over 50 back-to-back launches, with their device time alone
+     (torch.profiler) and the host time of one call beside it.  The plain
+     RPO permutation is some 16,000 elementwise launches, so at the fib
+     path's shapes it is compared on a 2^18-state sample of the same
+     inputs (the line says so) while the kernel is timed at the full
+     shape;
   4. prove fib at 2^10 values and brainfuck "++>+++[<+>-]<." with the
      golden-fixture options, and the fully algebraic fib at 2^7 values:
      the bytes must equal ``tests/golden/`` and every kernel of each path
@@ -162,6 +166,40 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_only_ms(torch, fn, reps: int):
+    """Mean device time of fn()'s kernels alone over `reps` back-to-back
+    runs, from torch.profiler's CUDA events (each kernel's start to end, no
+    launch gaps); None where the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    if not dev:
+        return None
+    return sum(e.time_range.end - e.time_range.start
+               for e in dev) / 1e3 / reps
+
+
+def host_us(torch, fn, reps: int) -> float:
+    """Median host time of one fn() call, in microseconds: what the call
+    costs the CPU to enqueue (it returns before the card finishes), the
+    queue drained before each call."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return sorted(times)[reps // 2] * 1e6
+
+
 def timed_once(torch, fn):
     """(fn(), its device time in ms) for a single run."""
     torch.cuda.synchronize()
@@ -251,7 +289,7 @@ class Checker:
         return s
 
     def check(self, name, path, parts, nbytes, ops, reps=3, plain_reps=3,
-              plain_on=None):
+              plain_on=None, launch_cost=False):
         """Kernel `name` against its plain version at `path`'s shapes.  Each
         part makes its own inputs and returns (kernel, plain, library or
         None[, full]), functions of no arguments; the parts' times add up,
@@ -259,10 +297,16 @@ class Checker:
         plain_reps=1 times the one comparison run of the plain version (for
         plain versions that take seconds).  A part that returns `full`
         compares kernel() with plain() on a sample of its inputs (named by
-        `plain_on`) and times full(), the kernel at the path's shape."""
+        `plain_on`) and times full(), the kernel at the path's shape.
+        launch_cost=True times the kernel and the library call in turns
+        (kernel, library, library, kernel) and also takes, for each, the
+        device time alone (torch.profiler, `reps` launches) and the host
+        time of one call (the median of `reps`)."""
         torch = self.torch
         err = ms = plain_ms = 0.0
         library_ms = None
+        cost = {"device_only_ms": 0.0, "host_us": 0.0,
+                "library_device_only_ms": 0.0, "library_host_us": 0.0}
         for make in parts:
             kernel, plain, library, *full = make()
             got = kernel()
@@ -273,12 +317,27 @@ class Checker:
             torch.cuda.synchronize()
             err = max(err, max_abs_err(torch, got, want))
             del got, want
-            ms += time_ms(torch, full[0] if full else kernel, reps)
+            if launch_cost and library is not None:
+                # launch-bound: kernel and library in turns (k, l, l, k)
+                t = [time_ms(torch, f, reps)
+                     for f in (kernel, library, library, kernel)]
+                ms += (t[0] + t[3]) / 2
+                library_ms = (library_ms or 0.0) + (t[1] + t[2]) / 2
+            else:
+                ms += time_ms(torch, full[0] if full else kernel, reps)
             plain_ms += (t_plain if plain_reps == 1
                          else time_ms(torch, plain, plain_reps))
-            if library is not None:
+            if library is not None and not launch_cost:
                 library_ms = (library_ms or 0.0) + time_ms(torch, library,
                                                            reps)
+            if launch_cost:
+                for key, fn in (("", kernel), ("library_", library)):
+                    if fn is None:
+                        continue
+                    d = device_only_ms(torch, fn, reps)
+                    k = key + "device_only_ms"
+                    cost[k] = None if None in (d, cost[k]) else cost[k] + d
+                    cost[key + "host_us"] += host_us(torch, fn, reps)
             del kernel, plain, library, full
             torch.cuda.empty_cache()
         bound_ms, bound_by = bound(nbytes, ops)
@@ -287,6 +346,13 @@ class Checker:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
         lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
+        if launch_cost:
+            self.results[(name, path)].update(cost)
+            lib += ("; device only (torch.profiler): kernel "
+                    f"{cost['device_only_ms']} ms, library "
+                    f"{cost['library_device_only_ms']} ms; host per call: "
+                    f"kernel {cost['host_us']:.1f} us, library "
+                    f"{cost['library_host_us']:.1f} us")
         on = ""
         if plain_on:
             self.results[(name, path)]["plain_on"] = plain_on
@@ -351,17 +417,15 @@ def compare_fib_kernels(ck: Checker, fib_air_big, path, names):
     tw2 = _stage_table(pow(lde.group_gen, n1, P), n2, dev)
     post = rand(n2, n1)
 
-    def ntt_kernel():
-        return torch.cat([kntt.col_ntt(x1, tw1, pre=pre, tmat=tmat).reshape(-1),
-                          kntt.col_ntt(x2, tw2, tmat=post).reshape(-1)])
-
-    def ntt_plain():
-        return torch.cat([
-            kntt.col_ntt_plain(x1, tw1, pre=pre, tmat=tmat).reshape(-1),
-            kntt.col_ntt_plain(x2, tw2, tmat=post).reshape(-1)])
-
+    # one part per pass, so the time is the two launches' alone
+    passes = [
+        lambda: (lambda: kntt.col_ntt(x1, tw1, pre=pre, tmat=tmat),
+                 lambda: kntt.col_ntt_plain(x1, tw1, pre=pre, tmat=tmat),
+                 None),
+        lambda: (lambda: kntt.col_ntt(x2, tw2, tmat=post),
+                 lambda: kntt.col_ntt_plain(x2, tw2, tmat=post), None)]
     butterflies = cols * lde_n * (lde_n.bit_length() - 1) // 2
-    ck.check("ntt", path, part(ntt_kernel, ntt_plain),
+    ck.check("ntt", path, passes,
              8 * (4 * cols * lde_n + 3 * lde_n + n1 // 2 + n2 // 2),
              butterflies * (OPS_MUL + 2 * OPS_ADD) + 3 * cols * lde_n * OPS_MUL,
              reps=2, plain_reps=2)
@@ -491,11 +555,14 @@ def compare_bf_kernels(ck: Checker, bf_air_big, path, names):
                                     x, 4), None)
         return make
 
+    # at hello_world's 2^15 points a launch takes microseconds: time 50
+    # back to back, and the device time alone and the host time of a call
+    small = n < 1 << 20
     ck.check("ntt", path, [ntt_part(w, f) for w in widths for f in (1, 0)],
              sum(8 * (4 * w * n + 2 * n + n1 // 2 + n2 // 2) for w in widths),
              sum(w * n * (n.bit_length() - 1) // 2 * (OPS_MUL + 2 * OPS_ADD)
                  + 2 * w * n * OPS_MUL for w in widths),
-             reps=2, plain_reps=1)
+             reps=50 if small else 2, plain_reps=1, launch_cost=small)
     del pre, tmat
 
     # C: the six-step transposes of the same three LDEs
@@ -507,7 +574,8 @@ def compare_bf_kernels(ck: Checker, bf_air_big, path, names):
         return make
 
     ck.check("transpose", path, [tr_part(w) for w in widths],
-             sum(16 * w * n for w in widths), 0, reps=2, plain_reps=2)
+             sum(16 * w * n for w in widths), 0, reps=50 if small else 2,
+             plain_reps=50 if small else 2, launch_cost=small)
 
     if "sha256" in names:
         # D: the base LDE's row digests (17 columns, column-major view)

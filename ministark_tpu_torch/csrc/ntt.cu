@@ -1,5 +1,5 @@
-// Kernel B: batched column NTTs in shared memory (the six-step building
-// block).
+// Kernel B: batched column NTTs, each column in registers and shared
+// memory (the six-step building block).
 //
 // Replaces ministark_tpu/ops/ntt_pallas.py `_col_ntt_kernel_unrolled`
 // (called through `col_ntt` from ntt.py's six-step pipeline).
@@ -12,84 +12,166 @@
 // scale before the first pass, the six-step twiddle matrix after it, and
 // the inverse transform's 1/n * offset^-i after the second pass.
 //
-// Bound on the card: integer operations, narrowly.  A transform of n points
-// does ~n/2 log2(n) Goldilocks multiplies against 16n bytes of device
-// traffic for each pass, a few operations per byte (chip_smoke.py's model:
-// 1.7 ms of operations against 0.6 ms of traffic for the 8-column
-// 2^23-point LDE).  Design: a block owns TC
-// contiguous columns for all n1 rows, so the data crosses device memory once
-// per pass, every stage runs in shared memory, and each row load is a
-// contiguous TC * 8-byte segment.  TC is chosen so the tile fills up to
-// 128 KB of shared memory.
+// Bound on the card: 32-bit integer instructions.  A column of n1 points
+// takes n1/2 log2(n1) butterflies, each a Goldilocks product (a 64x64-bit
+// product from four 32-bit multiplies, then a reduction) and an add and a
+// sub, against 16 bytes of device traffic per point and pass: about a dozen
+// 32-bit operations per byte moved, where the card does five per byte of
+// its memory rate, so the time is the instruction stream, and whatever adds
+// instructions or stalls it costs directly.  The design:
+//  - one instantiation per n1 = 2^L (L = 0..14), so every index, loop bound
+//    and shift is a compile-time constant (no division, 32-bit positions);
+//  - a thread holds R = 16 values of one column (ntt_sched.cuh) and runs
+//    four stages on them in registers per round, so a 2^12-point column is
+//    three rounds with two exchanges through shared memory (a write, one
+//    barrier, a read) instead of twelve stages that each read and write
+//    shared memory behind a barrier; the exchange slots are XOR-swizzled
+//    so no round's accesses conflict in the banks;
+//  - butterflies keep lazy representatives (one carry or borrow fix, no
+//    compare-and-select to canonical form), canonical only at the store;
+//    round 0's unit twiddles cost no product; the product is written as
+//    32-bit PTX carry chains (`ntt_mul`);
+//  - twiddles come from a shared-memory copy of the per-stage tables,
+//    laid out as a heap (stage b at [2^b, 2^(b+1))) so consecutive threads
+//    read consecutive slots, and the last stage's straight from tw, which
+//    consecutive threads read contiguously;
+//  - a block owns tc columns (a power of two dividing C; tc * n1 <= 8192,
+//    at most 512 threads): two blocks of up to 16 warps fit an SM below
+//    ~100 KB of shared memory each, rows are read and written as tc * 8-byte
+//    segments, and tc shrinks while the grid has fewer than two blocks per
+//    SM; n1 = 2^14 takes one column and 1024 threads a block;
+//  - the batch is folded into grid.x, and each instantiation sets its
+//    shared-memory limit once, on its first launch.
+// Tried and slower at the proves' shapes on an H100: 8 values a thread,
+// 4096-value tiles, one block an SM with up to 128 registers a thread, and
+// gl_mul's C++ product.  Registers and spills of each instantiation:
+// scripts/ptxas_report.py.
 //
-// Columns longer than 16384 rows do not fit shared memory; they take the
-// multi-pass variant `ms_col_ntt_stage` at the end of this file.
+// Columns longer than 16384 rows take the multi-pass variant
+// `ms_col_ntt_stage` at the end of this file.
 #include "goldilocks.cuh"
 #include "launch.cuh"
+#include "ntt_sched.cuh"
 
 static __device__ __forceinline__ uint32_t bitrev(uint32_t i, int bits) {
     return bits == 0 ? 0 : (__brev(i) >> (32 - bits));
 }
 
-__global__ void col_ntt_kernel(const uint64_t* __restrict__ x,
-                               uint64_t* __restrict__ y,
-                               const uint64_t* __restrict__ tw,
-                               const uint64_t* __restrict__ pre,
-                               const uint64_t* __restrict__ tmat,
-                               int64_t n1, int64_t C, int log_n1, int TC) {
-    extern __shared__ uint64_t s[];
-    const int64_t b = blockIdx.y;
-    const int64_t c0 = (int64_t)blockIdx.x * TC;
-    const uint64_t* xb = x + b * n1 * C;
-    uint64_t* yb = y + b * n1 * C;
-    const int64_t tile = n1 * TC;
+// twiddle of bit b for low position bits j: the heap in shared memory, or
+// the table itself for the last stage
+template <int L>
+struct SharedTw {
+    const uint64_t* heap;
+    const uint64_t* tw;
+    __host__ __device__ __forceinline__ uint64_t operator()(int b,
+                                                            uint32_t j) const {
+#ifdef __CUDA_ARCH__
+        return b == L - 1 ? __ldg(tw + j) : heap[(1u << b) + j];
+#else
+        return 0;  // device only; the host build never calls it
+#endif
+    }
+};
 
-    for (int64_t k = threadIdx.x; k < tile; k += blockDim.x) {
-        int64_t r = k / TC, cc = k % TC;
-        int64_t src = bitrev((uint32_t)r, log_n1);
-        uint64_t v = xb[src * C + c0 + cc];
-        if (pre) v = gl_mul(v, pre[src * C + c0 + cc]);
-        s[k] = v;
+template <int L, int I>
+__device__ __forceinline__ void run_rounds(uint64_t* v, uint64_t* tile,
+                                           uint32_t f, uint32_t cc, int tc,
+                                           const SharedTw<L>& tw) {
+    if constexpr (I < ntt_rounds(L)) {
+        if constexpr (I > 0) {
+            if constexpr (I > 1) __syncthreads();  // round I-1 read the tile
+            ntt_write<L, I - 1>(tile, v, f, cc, tc);
+            __syncthreads();
+            ntt_read<L, I>(tile, v, f, cc, tc);
+        }
+        ntt_round<L, I>(v, f, tw);
+        run_rounds<L, I + 1>(v, tile, f, cc, tc, tw);
+    }
+}
+
+// threads of a block at most: 512 (two blocks an SM), or a whole 2^14-point
+// column's 1024 (one)
+template <int L>
+constexpr int ntt_max_threads() { return L == NTT_MAX_LOG ? 1024 : 512; }
+
+template <int L>
+__global__ void __launch_bounds__(ntt_max_threads<L>(),
+                                  L == NTT_MAX_LOG ? 1 : 2)
+col_ntt_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
+               const uint64_t* __restrict__ tw,
+               const uint64_t* __restrict__ pre,
+               const uint64_t* __restrict__ tmat, int64_t C, int log_tc,
+               unsigned col_blocks) {
+    constexpr int N = 1 << L;
+    extern __shared__ uint64_t smem[];
+    uint64_t* heap = smem;           // N/2 slots, slot 0 unused
+    uint64_t* tile = smem + N / 2;   // N * tc slots
+    const int tc = 1 << log_tc;
+    const unsigned b = blockIdx.x / col_blocks;
+    const int64_t c = (int64_t)(blockIdx.x - b * col_blocks) * tc +
+                      (threadIdx.x & (tc - 1));
+    const uint32_t f = threadIdx.x >> log_tc, cc = threadIdx.x & (tc - 1);
+    const int64_t off = (int64_t)b * N * C + c;
+
+    uint64_t v[1 << ntt_rl(L)];
+    ntt_load<L>(v, x + off, pre ? pre + c : nullptr, f, C);
+    for (int e = threadIdx.x + 1; e < N / 2; e += blockDim.x) {
+        const int bb = 31 - __clz(e);
+        heap[e] = tw[(e - (1 << bb)) << (L - 1 - bb)];
     }
     __syncthreads();
+    run_rounds<L, 0>(v, tile, f, cc, tc, SharedTw<L>{heap, tw});
+    ntt_store<L>(v, y + off, tmat ? tmat + c : nullptr, f, C);
+}
 
-    for (int st = 1; st <= log_n1; st++) {
-        const int64_t half = 1LL << (st - 1);
-        const int64_t tstride = n1 >> st;
-        for (int64_t k = threadIdx.x; k < (n1 >> 1) * TC; k += blockDim.x) {
-            int64_t bf = k / TC, cc = k % TC;
-            int64_t j = bf & (half - 1);
-            int64_t i0 = ((bf - j) << 1) + j;
-            uint64_t w = tw[j * tstride];
-            uint64_t u = s[i0 * TC + cc];
-            uint64_t v = gl_mul(s[(i0 + half) * TC + cc], w);
-            s[i0 * TC + cc] = gl_add(u, v);
-            s[(i0 + half) * TC + cc] = gl_sub(u, v);
+template <int L>
+static int col_ntt_launch(const uint64_t* x, uint64_t* y, const uint64_t* tw,
+                          const uint64_t* pre, const uint64_t* tmat,
+                          int64_t B, int64_t C, cudaStream_t stream) {
+    constexpr int N = 1 << L, T = N >> ntt_rl(L);
+    constexpr int MAX_THREADS = ntt_max_threads<L>();
+    constexpr int TC_MAX = (NTT_TILE_ELEMS >> L) < 1 ? 1
+        : ((NTT_TILE_ELEMS >> L) * T > MAX_THREADS ? MAX_THREADS / T
+                                                  : NTT_TILE_ELEMS >> L);
+    constexpr bool EXCHANGE = ntt_rounds(L) > 1;
+    // set once per instantiation: the most shared memory it asks for
+    static bool configured = false;
+    if (!configured) {
+        const size_t most = ((EXCHANGE ? (size_t)N * TC_MAX : 0) + N / 2) * 8;
+        if (most > 48 * 1024) {
+            cudaError_t e = cudaFuncSetAttribute(
+                col_ntt_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)most);
+            if (e != cudaSuccess) return (int)e;
         }
-        __syncthreads();
+        configured = true;
     }
-
-    for (int64_t k = threadIdx.x; k < tile; k += blockDim.x) {
-        int64_t r = k / TC, cc = k % TC;
-        uint64_t v = s[k];
-        if (tmat) v = gl_mul(v, tmat[r * C + c0 + cc]);
-        yb[r * C + c0 + cc] = v;
-    }
+    int log_tc = 0;  // columns a block: the largest power of two dividing C
+    while ((1 << (log_tc + 1)) <= TC_MAX && C % (2LL << log_tc) == 0) log_tc++;
+    // ... but narrower while the grid has fewer than two blocks per SM
+    while (log_tc > 2 && (C >> log_tc) * B < 2 * 132) log_tc--;
+    const int64_t blocks = (C >> log_tc) * B;
+    if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+    const size_t smem = ((EXCHANGE ? (size_t)N << log_tc : 0) + N / 2) * 8;
+    col_ntt_kernel<L><<<(unsigned)blocks, T << log_tc, smem, stream>>>(
+        x, y, tw, pre, tmat, C, log_tc, (unsigned)(C >> log_tc));
+    return ms_last_error();
 }
 
 MS_API int ms_col_ntt(const uint64_t* x, uint64_t* y, const uint64_t* tw,
                       const uint64_t* pre, const uint64_t* tmat, int64_t B,
-                      int64_t n1, int64_t C, int64_t log_n1, int64_t TC,
+                      int64_t n1, int64_t C, int64_t log_n1,
                       cudaStream_t stream) {
-    size_t smem = (size_t)(n1 * TC) * sizeof(uint64_t);
-    cudaError_t e = cudaFuncSetAttribute(
-        col_ntt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((unsigned)(C / TC), (unsigned)B);
-    col_ntt_kernel<<<grid, 256, smem, stream>>>(x, y, tw, pre, tmat, n1, C,
-                                                (int)log_n1, (int)TC);
-    return ms_last_error();
+    if (B == 0 || C == 0) return ms_last_error();
+    switch (log_n1) {
+#define NTT_CASE(l) \
+    case l: return col_ntt_launch<l>(x, y, tw, pre, tmat, B, C, stream);
+        NTT_CASE(0) NTT_CASE(1) NTT_CASE(2) NTT_CASE(3) NTT_CASE(4)
+        NTT_CASE(5) NTT_CASE(6) NTT_CASE(7) NTT_CASE(8) NTT_CASE(9)
+        NTT_CASE(10) NTT_CASE(11) NTT_CASE(12) NTT_CASE(13) NTT_CASE(14)
+#undef NTT_CASE
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 // The multi-pass column NTT for n1 above the shared-memory tile (transforms

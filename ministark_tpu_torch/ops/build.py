@@ -5,7 +5,8 @@ object with a plain C interface (``csrc/launch.cuh``) and loaded with
 ctypes.  Libraries land in ``ministark_tpu_torch/_build/``, keyed by a hash
 of the sources, the headers and the flags, so an unchanged kernel is built
 once per checkout.  Pointers come from ``Tensor.data_ptr()`` and the stream
-from ``torch.cuda.current_stream()``; every entry point returns
+from ``current_stream()``; each entry point's library and ctypes prototype
+are looked up and set once.  Every entry point returns
 ``cudaGetLastError()`` and ``CudaKernel.launch`` raises if it is not 0.
 
 The CPU tests build host C++ from the same headers with g++
@@ -115,12 +116,18 @@ class CudaKernel:
     `source` is a file under csrc/; kernels generated at run time (the
     constraint evaluator) pass their source text to ``launch`` instead."""
 
-    def __init__(self, name: str, source: str | None, replaces: str):
+    def __init__(self, name: str, source: str | None, replaces: str,
+                 prototypes: dict | None = None):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.launches = 0
         self._file_text: str | None = None
+        # entry point -> its ctypes argument types, stream excluded, for
+        # entry points that take plain ints (pointers from data_ptr())
+        self._prototypes = prototypes or {}
+        # (entry point, source text) -> (typed ctypes function, library)
+        self._entries: dict = {}
 
     def _text(self, source_text):
         if source_text is not None:
@@ -133,17 +140,28 @@ class CudaKernel:
         """Compile and load (once); returns the seconds it took."""
         return _load_cuda(self.name, self._text(source_text))
 
+    def _entry(self, fn: str, args, source_text):
+        """Entry point `fn`, built, loaded and typed (once), and its
+        library: typed by its prototype, else by the ctypes types of its
+        first call's arguments."""
+        key = (fn, source_text)
+        hit = self._entries.get(key)
+        if hit is None:
+            self.build(source_text)
+            lib = _LIBS[self._text(source_text)]
+            f = getattr(lib, fn)
+            f.restype = ctypes.c_int
+            types = self._prototypes.get(fn) or [type(a) for a in args]
+            f.argtypes = [*types, ctypes.c_void_p]
+            hit = self._entries[key] = (f, lib)
+        return hit
+
     def launch(self, fn: str, *args, source_text: str | None = None):
-        """Call entry point `fn` with ctypes-typed args plus the current
-        stream; raise on any CUDA error the launch reports."""
-        text = self._text(source_text)
-        self.build(source_text)
-        lib = _LIBS[text]
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        f = getattr(lib, fn)
-        f.restype = ctypes.c_int
-        f.argtypes = [type(a) for a in args] + [ctypes.c_void_p]
-        rc = f(*args, stream)
+        """Call entry point `fn` with its args (ctypes-typed, or plain ints
+        where the kernel declared its prototype) plus the current stream;
+        raise on any CUDA error the launch reports."""
+        f, lib = self._entry(fn, args, source_text)
+        rc = f(*args, current_stream())
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name}.{fn} failed: "
                                f"{lib.ms_error_string(rc).decode()} ({rc})")
@@ -152,9 +170,21 @@ class CudaKernel:
 
 KERNELS: dict[str, CudaKernel] = {}
 
+# ctypes types for a kernel's declared prototype
+PTR, I64 = ctypes.c_void_p, ctypes.c_int64
 
-def register(name: str, source: str | None, replaces: str) -> CudaKernel:
-    k = CudaKernel(name, source, replaces)
+
+def current_stream() -> int:
+    """The handle of the current CUDA stream, as an int: torch's own
+    accessor (the one Triton's launcher reads); building a
+    torch.cuda.Stream object instead costs several microseconds a launch,
+    more than a small kernel runs."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
+def register(name: str, source: str | None, replaces: str,
+             prototypes: dict | None = None) -> CudaKernel:
+    k = CudaKernel(name, source, replaces, prototypes)
     KERNELS[name] = k
     return k
 

@@ -9,15 +9,15 @@ transformed along n1 with
     output canonical (times tmat[row, c] when given),
 
 where `pre` and `tmat` are (n1, C) tables shared by every batch.  Columns
-of up to ``SMEM_ELEMS`` rows run kernel B, one launch with every stage in
-shared memory; longer ones (transforms of more than 2^28 points) run the
-multi-pass kernel, one launch per stage over device memory.
+of up to ``MAX_N1`` rows run kernel B, one launch with every stage in
+registers and shared memory (csrc/ntt_sched.cuh has its schedule); longer
+ones (transforms of more than 2^28 points) run the multi-pass kernel, one
+launch per stage over device memory.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
 
@@ -26,13 +26,14 @@ from . import build
 
 KERNEL = build.register(
     "ntt", "ntt.cu",
-    replaces="ministark_tpu/ops/ntt_pallas.py:137 _col_ntt_kernel_unrolled")
+    replaces="ministark_tpu/ops/ntt_pallas.py:137 _col_ntt_kernel_unrolled",
+    prototypes={"ms_col_ntt": (build.PTR,) * 5 + (build.I64,) * 4})
 KERNEL_STAGE = build.register(
     "ntt_stage", "ntt.cu",
     replaces="ministark_tpu/ops/ntt_pallas.py:94 _col_ntt_kernel")
 
-# Largest tile of one block: n1 rows x TC columns of u64 in shared memory.
-SMEM_ELEMS = 16384
+# Longest column kernel B takes (NTT_MAX_LOG in csrc/ntt_sched.cuh).
+MAX_N1 = 1 << 14
 
 
 @functools.lru_cache(maxsize=32)
@@ -92,18 +93,14 @@ def col_ntt(x, tw, pre=None, tmat=None):
     if not x.is_cuda:
         return col_ntt_plain(x, tw, pre, tmat)
     B, n1, C = x.shape
-    if n1 > SMEM_ELEMS:
+    if n1 > MAX_N1:
         return col_ntt_staged(x, tw, pre, tmat)
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the kernel's grid")
     x, tw = _check(x, tw, pre, tmat)
-    # columns per block: a power of two that fits shared memory and divides C
-    TC = math.gcd(C, SMEM_ELEMS // n1)
     y = torch.empty_like(x)
-    null = build.ptr_or_null
-    KERNEL.launch("ms_col_ntt", build.ptr(x), build.ptr(y), build.ptr(tw),
-                  null(pre), null(tmat), build.i64(B), build.i64(n1),
-                  build.i64(C), build.i64(n1.bit_length() - 1), build.i64(TC))
+    KERNEL.launch("ms_col_ntt", x.data_ptr(), y.data_ptr(), tw.data_ptr(),
+                  None if pre is None else pre.data_ptr(),
+                  None if tmat is None else tmat.data_ptr(), B, n1, C,
+                  n1.bit_length() - 1)
     return y
 
 
@@ -111,7 +108,7 @@ def col_ntt_staged(x, tw, pre=None, tmat=None):
     """The same function on a CUDA tensor by the multi-pass kernel: a
     bit-reversing gather (times `pre`) into a new tensor, then one launch
     per radix-2 stage in place on it, `tmat` folded into the last.
-    ``col_ntt`` takes it for columns longer than ``SMEM_ELEMS``."""
+    ``col_ntt`` takes it for columns longer than ``MAX_N1``."""
     x, tw = _check(x, tw, pre, tmat)
     B, n1, C = x.shape
     log_n1 = n1.bit_length() - 1

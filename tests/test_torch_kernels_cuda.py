@@ -7,6 +7,7 @@ them on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
 No JAX is imported here, so the file also runs where JAX is not installed.
 """
 
+import itertools
 import shutil
 
 import numpy as np
@@ -78,6 +79,26 @@ def test_kernel_matches_plain_on_card(dev, kernel):
         x, pre = _rand((2, 4096, 6), 4), _rand((4096, 6), 5)
         _same(torch, kntt.col_ntt(x.to(dev), tw.to(dev), pre=pre.to(dev)),
               kntt.col_ntt_plain(x, tw, pre=pre))
+        # every column length kernel B takes (one instantiation each): one
+        # column, a width of 6 or 40 (tiles of 2 or 8 columns), batches,
+        # each combination of the pre and tmat tables
+        for log_n1 in range(kntt.MAX_N1.bit_length()):
+            n1 = 1 << log_n1
+            root = get_root_of_unity(n1).v if n1 > 1 else 1
+            tw = powers(root, max(n1 // 2, 1), "cpu")[: n1 // 2]
+            shapes = ((3, 1), (2, 6), (1, 40)) if n1 <= 4096 else ((2, 1),
+                                                                  (1, 6))
+            for (B, C), use_pre, use_tmat in itertools.product(
+                    shapes, (False, True), (False, True)):
+                seed = 100 * log_n1 + 10 * C + 2 * use_pre + use_tmat
+                x = _rand((B, n1, C), seed)
+                pre = _rand((n1, C), seed + 1) if use_pre else None
+                tmat = _rand((n1, C), seed + 2) if use_tmat else None
+                got = kntt.col_ntt(
+                    x.to(dev), tw.to(dev),
+                    pre=None if pre is None else pre.to(dev),
+                    tmat=None if tmat is None else tmat.to(dev))
+                _same(torch, got, kntt.col_ntt_plain(x, tw, pre, tmat))
     elif kernel == "ntt_stage":
         from ministark_tpu_torch.fields.scalar import get_root_of_unity
         from ministark_tpu_torch.ntt import powers
@@ -134,9 +155,17 @@ def test_kernel_matches_plain_on_card(dev, kernel):
     elif kernel == "transpose":
         from ministark_tpu_torch.ops import transpose as ktr
 
-        for shape in ((1, 1, 1), (3, 40, 72), (2, 64, 32)):
+        # rows a multiple of 32 and columns of 64 take the 16-byte tiles,
+        # other shapes the masked ones; a batch above the old 65535 cap of
+        # the grid
+        for shape in ((1, 1, 1), (3, 40, 72), (2, 64, 32), (2, 32, 64),
+                      (2, 64, 128), (5, 128, 64), (2, 100, 130),
+                      (1, 4096, 64), (3, 96, 192), (70000, 2, 3)):
             x = _rand(shape, sum(shape)).to(dev)
             _same(torch, ktr.transpose(x), ktr.transpose_plain(x))
+        # an input 8 bytes off 16-byte alignment takes the masked tiles
+        x = _rand(1 + 2 * 64 * 64, 9).to(dev)[1:].view(2, 64, 64)
+        _same(torch, ktr.transpose(x), ktr.transpose_plain(x))
     elif kernel == "sha256":
         from ministark_tpu_torch.ops import sha256 as ksha
 
