@@ -30,7 +30,7 @@
 //  - butterflies keep lazy representatives (one carry or borrow fix, no
 //    compare-and-select to canonical form), canonical only at the store;
 //    round 0's unit twiddles cost no product; the product is written as
-//    32-bit PTX carry chains (`ntt_mul`);
+//    32-bit PTX carry chains (`gl_mul_cc`, goldilocks.cuh);
 //  - twiddles come from a shared-memory copy of the per-stage tables,
 //    laid out as a heap (stage b at [2^b, 2^(b+1))) so consecutive threads
 //    read consecutive slots, and the last stage's straight from tw, which

@@ -61,8 +61,6 @@ NS_CX int ntt_reg_base(int L, int i) {
 
 // -- field helpers (lazy representatives in [0, 2^64)) ----------------------
 
-NS_HD uint64_t gl_canon(uint64_t a) { return a >= GL_P ? a - GL_P : a; }
-
 // a + t for any a and canonical t: a carry out adds back 2^64 mod p, and
 // a + t - 2^64 < t, so that cannot carry again
 NS_HD uint64_t gl_add_lazy(uint64_t a, uint64_t t) {
@@ -75,51 +73,6 @@ NS_HD uint64_t gl_add_lazy(uint64_t a, uint64_t t) {
 NS_HD uint64_t gl_sub_lazy(uint64_t a, uint64_t t) {
     uint64_t d = a - t;
     return a < t ? d - GL_EPS : d;
-}
-
-// a * b, canonical, for any u64 a and b: gl_mul's arithmetic, on the card
-// as 32-bit PTX carry chains (the 128-bit product, then its reduction),
-// which ran faster than gl_mul's C++ in kernel B at the proves' shapes
-NS_HD uint64_t ntt_mul(uint64_t a, uint64_t b) {
-#ifdef __CUDA_ARCH__
-    const uint32_t a0 = (uint32_t)a, a1 = (uint32_t)(a >> 32);
-    const uint32_t b0 = (uint32_t)b, b1 = (uint32_t)(b >> 32);
-    uint32_t r0, r1, r2, r3, s0, s1;
-    asm("mul.lo.u32 %0, %4, %6;\n\t"
-        "mul.hi.u32 %1, %4, %6;\n\t"
-        "mad.lo.cc.u32 %1, %4, %7, %1;\n\t"
-        "madc.hi.u32 %2, %4, %7, 0;\n\t"
-        "mad.lo.cc.u32 %1, %5, %6, %1;\n\t"
-        "madc.hi.cc.u32 %2, %5, %6, %2;\n\t"
-        "madc.hi.u32 %3, %5, %7, 0;\n\t"
-        "mad.lo.cc.u32 %2, %5, %7, %2;\n\t"
-        "addc.u32 %3, %3, 0;"
-        : "=&r"(r0), "=&r"(r1), "=&r"(r2), "=&r"(r3)
-        : "r"(a0), "r"(a1), "r"(b0), "r"(b1));
-    // lo - r3 (a borrow takes 2^64 mod p more off), plus r2 * (2^32 - 1)
-    // (a carry adds 2^64 mod p back), as in gl_reduce128
-    asm("{\n\t.reg .u32 t0, t1, m, u0, u1, z;\n\t"
-        "mov.u32 z, 0;\n\t"
-        "sub.cc.u32 t0, %2, %5;\n\t"
-        "subc.cc.u32 t1, %3, z;\n\t"
-        "subc.u32 m, z, z;\n\t"
-        "sub.cc.u32 t0, t0, m;\n\t"
-        "subc.u32 t1, t1, z;\n\t"
-        "sub.cc.u32 u0, z, %4;\n\t"
-        "subc.u32 u1, %4, z;\n\t"
-        "add.cc.u32 t0, t0, u0;\n\t"
-        "addc.cc.u32 t1, t1, u1;\n\t"
-        "addc.u32 m, z, z;\n\t"
-        "neg.s32 m, m;\n\t"
-        "add.cc.u32 %0, t0, m;\n\t"
-        "addc.u32 %1, t1, z;\n\t"
-        "}"
-        : "=&r"(s0), "=&r"(s1)
-        : "r"(r0), "r"(r1), "r"(r2), "r"(r3));
-    return gl_canon(((uint64_t)s1 << 32) | s0);
-#else
-    return gl_mul(a, b);
-#endif
 }
 
 // -- index maps ------------------------------------------------------------
@@ -160,7 +113,7 @@ NS_HD void ntt_load(uint64_t* v, const uint64_t* x, const uint64_t* pre,
     for (int r = 0; r < (1 << RL); r++) {
         const int64_t src =
             (int64_t)ntt_bitrev(ntt_pos(f, r, 0, RL), L) * C;
-        v[r] = pre ? ntt_mul(x[src], pre[src]) : x[src];
+        v[r] = pre ? gl_mul_cc(x[src], pre[src]) : x[src];
     }
 }
 
@@ -173,7 +126,7 @@ NS_HD void ntt_store(const uint64_t* v, uint64_t* y, const uint64_t* tmat,
 #pragma unroll
     for (int r = 0; r < (1 << RL); r++) {
         const int64_t dst = (int64_t)ntt_pos(f, r, S, RL) * C;
-        y[dst] = tmat ? ntt_mul(v[r], tmat[dst]) : gl_canon(v[r]);
+        y[dst] = tmat ? gl_mul_cc(v[r], tmat[dst]) : gl_canon(v[r]);
     }
 }
 
@@ -218,7 +171,7 @@ NS_HD void ntt_stage(uint64_t* v, uint32_t lo, const Tw& tw) {
         for (int h = 0; h < (1 << (RL - Q - 1)); h++) {
             const int r0 = (h << (Q + 1)) | rr, r1 = r0 | (1 << Q);
             const uint64_t u = v[r0];
-            const uint64_t p = one ? gl_canon(v[r1]) : ntt_mul(v[r1], w);
+            const uint64_t p = one ? gl_canon(v[r1]) : gl_mul_cc(v[r1], w);
             v[r0] = gl_add_lazy(u, p);
             v[r1] = gl_sub_lazy(u, p);
         }

@@ -57,10 +57,15 @@ def test_kernel_matches_plain_on_card(dev, kernel):
     if kernel == "inv":
         from ministark_tpu_torch.ops import inv as kinv
 
-        for n in (1, 100, 4097):
+        # lengths around a tile of K T elements (T = 256 threads a block,
+        # K = 8, 16 or 32 a thread) and beyond 2^20; and all zeros
+        tiles = [k * 256 + d for k in (8, 16, 32) for d in (-1, 0, 1)]
+        for n in [1, 100, 4097, *tiles, (1 << 20) + 3]:
             a = _rand(n, n).to(dev)
             a[::3] = 0
             _same(torch, kinv.inv_fp(a), kinv.inv_fp_plain(a))
+        z = torch.zeros(5000, dtype=torch.int64, device=dev)
+        _same(torch, kinv.inv_fp(z), z)
     elif kernel == "ntt":
         from ministark_tpu_torch.ntt import Domain
 
@@ -225,11 +230,16 @@ def test_kernel_matches_plain_on_card(dev, kernel):
     elif kernel == "inv_ext3":
         from ministark_tpu_torch.ops import inv as kinv
 
-        for shape in ((3, 1), (3, 100), (2, 3, 4097)):
+        # single rows, and batches of B > 1 rows shorter and longer than a
+        # tile, with a tail; and all zeros
+        for shape in ((3, 1), (3, 100), (2, 3, 4097), (5, 3, 7),
+                      (3, 3, 2049), (4, 3, 8193), (3, 3, (1 << 18) + 3)):
             a = _rand(shape, shape[-1]).to(dev)
             a[..., ::3] = 0          # zero elements
             a[..., 1:, 1::3] = 0     # base-field elements
             _same(torch, kinv.inv_ext3(a), kinv.inv_ext3_plain(a))
+        z = torch.zeros((2, 3, 3000), dtype=torch.int64, device=dev)
+        _same(torch, kinv.inv_ext3(z), z)
     elif kernel == "sha256_ext3":
         from ministark_tpu_torch.ops import sha256 as ksha
 
