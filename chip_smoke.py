@@ -18,13 +18,17 @@ RPO grind), and a 2^29-point coset LDE (the multi-pass column NTT).  Phases, any
      kernels at the 2^24-value fib prove's, the eight of the brainfuck
      path (the four Fq3 kernels and the ntt, transpose, sha256 and inv it
      shares with fib) at the 2^20-row brainfuck prove's and again at
-     hello_world's, the RPO fib prove's seven (its five shared ones at the
+     hello_world's, the RPO fib prove's eight (its five shared ones at the
      fib prove's shapes; the RPO permutation's row hashes, merges and FRI
-     rows; the RPO grind on one batch), hello_world RPO's eight (its six
-     shared ones, the RPO permutation, the grind) at hello_world's shapes,
-     and the LDE's kernel B and transposes on both passes of its 2^27- and
-     the first of its 2^29-point transform, and the multi-pass NTT on the
-     second; integer field math, so the tolerance is exact equality;
+     rows; the RPO grind on one batch; a whole Merkle tree of its 2^23
+     leaves, the merges and the tops launch, compared on a 2^18-leaf
+     tree), hello_world RPO's nine (its six shared ones, the RPO
+     permutation, the grind, a whole tree of its 2^15 leaves) at
+     hello_world's shapes, and the LDE's kernel B and transposes on both
+     passes of its 2^27- and the first of its 2^29-point transform, and
+     the multi-pass NTT on the second (and at n1 = 2^12 against kernel B
+     and its plain version, and at 2^16 on one and on 16 columns);
+     integer field math, so the tolerance is exact equality;
      print the kernel's time, the plain version's, the bound (the least time the
      card could take) and, where one PyTorch call computes the same
      function, its time.  At hello_world's shapes the ntt and transpose
@@ -90,9 +94,9 @@ FIB_PATH = ("inv", "ntt", "transpose", "sha256", "eval", "deep")
 BF_PATH = ("inv", "ntt", "transpose", "sha256", "inv_ext3", "sha256_ext3",
            "eval_ext3", "deep_ext3")
 FIB_RPO_PATH = ("inv", "ntt", "transpose", "eval", "deep", "rpo256",
-                "rpo256_grind")
+                "rpo256_grind", "rpo256_tree")
 BF_RPO_PATH = ("inv", "ntt", "transpose", "inv_ext3", "eval_ext3",
-               "deep_ext3", "rpo256", "rpo256_grind")
+               "deep_ext3", "rpo256", "rpo256_grind", "rpo256_tree")
 LDE_PATH = ("ntt", "transpose", "ntt_stage")
 RPO_SAMPLE = 1 << 18  # states the plain RPO permutation is compared on
 
@@ -761,6 +765,46 @@ def compare_bf_rpo_kernels(ck: Checker, hello_air):
              + 32 * (n // fold), perms * OPS_RPO, reps=2, plain_reps=1)
 
 
+def tree_plain(krpo, leaves):
+    """Every level of the tree over `leaves` by merge_plain, the two halves
+    of each level merged, as one tensor."""
+    import torch
+
+    levels, cur = [leaves], leaves
+    while cur.shape[0] > 1:
+        h = cur.shape[0] // 2
+        cur = krpo.merge_plain(cur[:h], cur[h:])
+        levels.append(cur)
+    return torch.cat(levels)
+
+
+def compare_tree(ck: Checker, path, n, sample):
+    """A whole RPO Merkle tree over n leaf digests through
+    ``merkle.tree_levels`` (the path's largest tree: its merge launches and
+    the tops launch), timed at n; compared level by level with merge_plain
+    on a tree of `sample` leaves (all n where sample == n)."""
+    import torch
+
+    from ministark_tpu_torch import hash_rpo, merkle
+    from ministark_tpu_torch.ops import rpo256 as krpo
+
+    def make():
+        leaves = digests(ck, n)
+        small = leaves[:sample]
+
+        def full():
+            return merkle.tree_levels(leaves, hash_rpo)
+
+        return (lambda: torch.cat(merkle.tree_levels(small, hash_rpo)),
+                lambda: tree_plain(krpo, small), None,
+                *([full] if sample < n else []))
+
+    ck.check("rpo256_tree", path, [make], 32 * n + 32 * (n - 1),
+             (n - 1) * OPS_RPO, reps=2 if n > 1 << 20 else 20, plain_reps=1,
+             plain_on=(f"a tree of {sample} of the {n} leaves"
+                       if sample < n else None))
+
+
 def compare_grind(ck: Checker, path, bits):
     """The RPO grind kernel on one batch of nonces, as large as the path's
     grind launches it (4 * 2^bits, at most 2^20): every nonce's count of
@@ -873,12 +917,29 @@ def compare_lde_kernels(ck: Checker):
     m = 1 << 12
     tw = powers(pow(lde.group_gen, n // m, P), m // 2, ck.dev)
     y, pre, tmat = ck.rand(2, m, 64), ck.rand(m, 64), ck.rand(m, 64)
-    err = max_abs_err(torch, kntt.col_ntt_staged(y, tw, pre, tmat),
-                      kntt.col_ntt(y, tw, pre, tmat))
+    staged = kntt.col_ntt_staged(y, tw, pre, tmat)
+    err = max_abs_err(torch, staged, kntt.col_ntt(y, tw, pre, tmat))
+    err_plain = max_abs_err(torch, staged,
+                            kntt.col_ntt_plain(y, tw, pre, tmat))
     print(f"kernel ntt_stage at n1 = 2^12 against kernel B on the same "
-          f"input: max_abs_err={err} (tolerance 0)", flush=True)
-    if err != 0:
-        fail("the multi-pass NTT disagrees with kernel B at n1 = 2^12")
+          f"input: max_abs_err={err}, against the plain version "
+          f"{err_plain} (tolerance 0)", flush=True)
+    if err != 0 or err_plain != 0:
+        fail("the multi-pass NTT disagrees with kernel B or its plain "
+             "version at n1 = 2^12")
+    # the longest column it takes in two passes, on narrow columns
+    m = 1 << 16
+    tw = powers(pow(lde.group_gen, n // m, P), m // 2, ck.dev)
+    for cols in (1, 16):
+        y, pre, tmat = ck.rand(1, m, cols), ck.rand(m, cols), ck.rand(m, cols)
+        err = max_abs_err(torch, kntt.col_ntt_staged(y, tw, pre, tmat),
+                          kntt.col_ntt_plain(y, tw, pre, tmat))
+        print(f"kernel ntt_stage at n1 = 2^16, {cols} column(s), against "
+              f"its plain version: max_abs_err={err} (tolerance 0)",
+              flush=True)
+        if err != 0:
+            fail("the multi-pass NTT disagrees with its plain version at "
+                 "n1 = 2^16")
 
 
 # ProofOptions(num_queries, lde_blowup_factor, grinding_factor,
@@ -1150,6 +1211,9 @@ def main() -> int:
     compare_bf_rpo_kernels(ck, hello_air)
     compare_grind(ck, FIB_RPO, FIB_OPTS[2])
     compare_grind(ck, BF_RPO, BF_OPTS[2])
+    compare_tree(ck, FIB_RPO, fib_air_big.lde_domain().size, RPO_SAMPLE)
+    hello_n = hello_air.lde_domain().size
+    compare_tree(ck, BF_RPO, hello_n, hello_n)
     torch.cuda.empty_cache()
     compare_lde_kernels(ck)
     torch.cuda.empty_cache()

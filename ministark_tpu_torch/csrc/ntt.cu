@@ -48,14 +48,11 @@
 // scripts/ptxas_report.py.
 //
 // Columns longer than 16384 rows take the multi-pass variant
-// `ms_col_ntt_stage` at the end of this file.
+// `ms_col_ntt_pass` at the end of this file.
 #include "goldilocks.cuh"
 #include "launch.cuh"
+#include "ntt_pass.cuh"
 #include "ntt_sched.cuh"
-
-static __device__ __forceinline__ uint32_t bitrev(uint32_t i, int bits) {
-    return bits == 0 ? 0 : (__brev(i) >> (32 - bits));
-}
 
 // twiddle of bit b for low position bits j: the heap in shared memory, or
 // the table itself for the last stage
@@ -73,10 +70,11 @@ struct SharedTw {
     }
 };
 
-template <int L, int I>
+// rounds I.. of a 2^L-point column (UNIT: see ntt_stage)
+template <int L, int I, bool UNIT = true, class Tw>
 __device__ __forceinline__ void run_rounds(uint64_t* v, uint64_t* tile,
                                            uint32_t f, uint32_t cc, int tc,
-                                           const SharedTw<L>& tw) {
+                                           const Tw& tw) {
     if constexpr (I < ntt_rounds(L)) {
         if constexpr (I > 0) {
             if constexpr (I > 1) __syncthreads();  // round I-1 read the tile
@@ -84,8 +82,8 @@ __device__ __forceinline__ void run_rounds(uint64_t* v, uint64_t* tile,
             __syncthreads();
             ntt_read<L, I>(tile, v, f, cc, tc);
         }
-        ntt_round<L, I>(v, f, tw);
-        run_rounds<L, I + 1>(v, tile, f, cc, tc, tw);
+        ntt_round<L, I, UNIT>(v, f, tw);
+        run_rounds<L, I + 1, UNIT>(v, tile, f, cc, tc, tw);
     }
 }
 
@@ -174,71 +172,105 @@ MS_API int ms_col_ntt(const uint64_t* x, uint64_t* y, const uint64_t* tw,
     return (int)cudaErrorInvalidValue;
 }
 
-// The multi-pass column NTT for n1 above the shared-memory tile (transforms
-// of more than 2^28 points): one launch per pass over device memory.
+// The multi-pass column NTT for n1 above kernel B's tile (transforms of
+// more than 2^28 points): a few stages a pass over device memory.
 //
 // Replaces ministark_tpu/ops/ntt_pallas.py `_col_ntt_kernel`, which runs
-// one butterfly stage per grid step.  Same function as col_ntt_kernel:
-// stage 0 gathers x's rows bit-reversed into y (times pre), stages
-// 1..log2(n1) each run one radix-2 DIT stage in place on y with twiddle
-// tw[j * (n1 >> stage)], and the last stage multiplies by tmat.
+// one butterfly stage per grid step.  Same function as col_ntt_kernel: the
+// bit-reversing gather (times pre), log2(n1) radix-2 DIT stages with
+// twiddles tw[j * (n1 >> stage)], the output canonical (times tmat).
 //
-// Bound on the card: integer operations for the least work (a multiply and
-// two adds per butterfly, log2(n1) stages, against one read and one write
-// of every element), but this kernel makes log2(n1) + 1 passes over device
-// memory at 16 bytes an element each, so its passes, not its arithmetic,
-// set its time.  Design: one thread per butterfly, the column index
-// fastest, so a warp's loads are contiguous row segments; simple and right
-// first (a later kernel can keep several stages in shared memory per pass).
-__global__ void col_ntt_stage_kernel(const uint64_t* __restrict__ x,
-                                     uint64_t* __restrict__ y,
-                                     const uint64_t* __restrict__ tw,
-                                     const uint64_t* __restrict__ pre,
-                                     const uint64_t* __restrict__ tmat,
-                                     int64_t B, int64_t n1, int64_t C,
-                                     int log_n1, int stage) {
-    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (stage == 0) {
-        for (; k < B * n1 * C; k += stride) {
-            int64_t q = k / C, c = k - q * C;
-            int64_t r = q & (n1 - 1), b = q >> log_n1;
-            int64_t src = bitrev((uint32_t)r, log_n1);
-            uint64_t v = x[(b * n1 + src) * C + c];
-            if (pre) v = gl_mul(v, pre[src * C + c]);
-            if (log_n1 == 0 && tmat) v = gl_mul(v, tmat[c]);
-            y[k] = v;
-        }
-        return;
+// Bound on the card: integer operations for the least work (a product and
+// two adds a butterfly, log2(n1) stages), against one read and one write
+// of every element.  A pass over device memory costs 16 bytes an element,
+// so the design keeps the passes few: NTT_PASS_MAX_LOG = 8 stages a pass
+// (ntt_pass.cuh), two passes up to n1 = 2^16 where one launch a stage made
+// seventeen.  A block takes one group of 2^K positions of a pass for tc
+// adjacent columns (row segments of tc * 8 bytes; up to 4096 values, 32 KB
+// of exchange), gathers or loads them, runs the pass's K stages with kernel
+// B's round schedule (ntt_sched.cuh: 16 values a thread, four stages a
+// round in registers, lazy butterflies, the PTX product, a swizzled
+// exchange), the group's twiddles in a shared-memory heap, and writes them
+// back in place; the first pass fuses the gather and pre, the last folds
+// tmat.  One instantiation per pass length K (and first pass or not) makes
+// the register loops constant; positions are 32-bit shifts and masks, and
+// a block decodes its group with one 32-bit division.
+template <int K, bool FIRST>
+__global__ void __launch_bounds__(512)
+col_ntt_pass_kernel(const uint64_t* x, uint64_t* y,
+                    const uint64_t* __restrict__ tw,
+                    const uint64_t* __restrict__ pre,
+                    const uint64_t* __restrict__ tmat, int64_t C, int L,
+                    int a, bool last, int log_tc, unsigned col_blocks) {
+    extern __shared__ uint64_t smem[];
+    uint64_t* heap = smem;                 // 2^K slots, slot 0 unused
+    uint64_t* tile = smem + (1 << K);      // 2^K * tc slots
+    const int tc = 1 << log_tc;
+    const unsigned q = blockIdx.x / col_blocks;  // (batch, group)
+    const uint32_t g = q & ((1u << (L - K)) - 1);
+    const int64_t b = q >> (L - K);
+    const uint32_t f = threadIdx.x >> log_tc, cc = threadIdx.x & (tc - 1);
+    const int64_t c = (int64_t)(blockIdx.x - q * col_blocks) * tc + cc;
+    const int64_t off = (b << L) * C + c;
+
+    uint64_t v[1 << ntt_rl(K)];
+    if constexpr (FIRST)
+        ntt_pass_gather<K>(v, x + off, pre ? pre + c : nullptr, f, C, L, g);
+    else
+        ntt_pass_load<K>(v, y + off, f, C, a, g);
+    if constexpr (K > 0) {
+        ntt_pass_heap(heap, tw, K, L, a, g, threadIdx.x + 1, blockDim.x);
+        __syncthreads();
+        run_rounds<K, 0, FIRST>(v, tile, f, cc, tc, PassTw{heap});
     }
-    const int64_t half = 1LL << (stage - 1);
-    const int64_t tstride = n1 >> stage;
-    const bool last = stage == log_n1 && tmat != nullptr;
-    for (; k < B * (n1 >> 1) * C; k += stride) {
-        int64_t q = k / C, c = k - q * C;
-        int64_t bf = q & ((n1 >> 1) - 1), b = q >> (log_n1 - 1);
-        int64_t j = bf & (half - 1);
-        int64_t i0 = ((bf - j) << 1) + j, i1 = i0 + half;
-        uint64_t* yb = y + b * n1 * C;
-        uint64_t u = yb[i0 * C + c];
-        uint64_t v = gl_mul(yb[i1 * C + c], tw[j * tstride]);
-        uint64_t lo = gl_add(u, v), hi = gl_sub(u, v);
-        if (last) {
-            lo = gl_mul(lo, tmat[i0 * C + c]);
-            hi = gl_mul(hi, tmat[i1 * C + c]);
-        }
-        yb[i0 * C + c] = lo;
-        yb[i1 * C + c] = hi;
-    }
+    ntt_pass_store<K>(v, y + off, tmat ? tmat + c : nullptr, last, f, C, a,
+                      g);
 }
 
-MS_API int ms_col_ntt_stage(const uint64_t* x, uint64_t* y,
-                            const uint64_t* tw, const uint64_t* pre,
-                            const uint64_t* tmat, int64_t B, int64_t n1,
-                            int64_t C, int64_t log_n1, int64_t stage,
-                            cudaStream_t stream) {
-    int64_t work = stage == 0 ? B * n1 * C : B * (n1 >> 1) * C;
-    col_ntt_stage_kernel<<<ms_blocks(work, 256), 256, 0, stream>>>(
-        x, y, tw, pre, tmat, B, n1, C, (int)log_n1, (int)stage);
+template <int K, bool FIRST>
+static int col_ntt_pass_launch(const uint64_t* x, uint64_t* y,
+                               const uint64_t* tw, const uint64_t* pre,
+                               const uint64_t* tmat, int64_t B, int64_t C,
+                               int L, int a, bool last, cudaStream_t stream) {
+    constexpr int T = (1 << K) >> ntt_rl(K);  // threads a column
+    int log_tc = 0;  // columns a block: the largest power of two dividing C
+    while ((2 << log_tc) <= ntt_pass_tc_max(K) && C % (2LL << log_tc) == 0)
+        log_tc++;
+    const int64_t blocks = (C >> log_tc) * (B << (L - K));
+    if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+    const size_t smem =
+        ((size_t)(1 << K) + (ntt_rounds(K) > 1 ? (size_t)1 << (K + log_tc)
+                                               : 0)) * 8;
+    col_ntt_pass_kernel<K, FIRST><<<(unsigned)blocks, T << log_tc, smem,
+                                    stream>>>(
+        x, y, tw, pre, tmat, C, L, a, last, log_tc, (unsigned)(C >> log_tc));
     return ms_last_error();
+}
+
+// pass `pass` of the column transform: x (B, n1, C) -> y, in place on y
+// after the first
+MS_API int ms_col_ntt_pass(const uint64_t* x, uint64_t* y, const uint64_t* tw,
+                           const uint64_t* pre, const uint64_t* tmat,
+                           int64_t B, int64_t n1, int64_t C, int64_t log_n1,
+                           int64_t pass, cudaStream_t stream) {
+    const int L = (int)log_n1;
+    if (B == 0 || C == 0) return ms_last_error();
+    if (L < 0 || L > 30 || (1LL << L) != n1 || pass < 0 ||
+        pass >= ntt_passes(L))
+        return (int)cudaErrorInvalidValue;
+    const int K = ntt_pass_len(L, (int)pass), a = ntt_pass_start(L, (int)pass);
+    const bool last = pass == ntt_passes(L) - 1;
+    switch (K * 2 + (pass == 0)) {
+#define PASS_CASE(k)                                                         \
+    case 2 * k + 1:                                                          \
+        return col_ntt_pass_launch<k, true>(x, y, tw, pre, tmat, B, C, L, a, \
+                                            last, stream);                   \
+    case 2 * k:                                                              \
+        return col_ntt_pass_launch<k, false>(x, y, tw, pre, tmat, B, C, L, a,\
+                                             last, stream);
+        PASS_CASE(0) PASS_CASE(1) PASS_CASE(2) PASS_CASE(3) PASS_CASE(4)
+        PASS_CASE(5) PASS_CASE(6) PASS_CASE(7) PASS_CASE(8)
+#undef PASS_CASE
+    }
+    return (int)cudaErrorInvalidValue;
 }

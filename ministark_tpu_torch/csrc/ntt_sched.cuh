@@ -154,10 +154,12 @@ NS_HD void ntt_read(const uint64_t* tile, uint64_t* v, uint32_t f,
 // Stage T of round I on the registers.  tw(b, j) is w_{2^(b+1)}^j, the
 // twiddle of bit b for the pair whose lower position has low bits j < 2^b:
 // tw[j << (L - 1 - b)] in the table tw[k] = w^k.  In round 0 the twiddle
-// of register pair 0 is w^0 = 1, known here, so it costs no product.  (The
-// stage is a template of its own so that every loop bound below is a
-// constant and the registers stay registers.)
-template <int L, int I, int T, class Tw>
+// of register pair 0 is w^0 = 1, known here, so it costs no product
+// (UNIT; the multi-pass kernel's later passes, whose positions carry low
+// bits from outside the pass, clear it).  (The stage is a template of its
+// own so that every loop bound below is a constant and the registers stay
+// registers.)
+template <int L, int I, int T, bool UNIT = true, class Tw>
 NS_HD void ntt_stage(uint64_t* v, uint32_t lo, const Tw& tw) {
     constexpr int RL = ntt_rl(L);
     constexpr int S = ntt_reg_base(L, I);
@@ -165,7 +167,7 @@ NS_HD void ntt_stage(uint64_t* v, uint32_t lo, const Tw& tw) {
     constexpr int Q = B - S;                      // ... in the registers
 #pragma unroll
     for (int rr = 0; rr < (1 << Q); rr++) {
-        const bool one = S == 0 && rr == 0;
+        const bool one = UNIT && S == 0 && rr == 0;
         const uint64_t w = one ? 1 : tw(B, lo | ((uint32_t)rr << S));
 #pragma unroll
         for (int h = 0; h < (1 << (RL - Q - 1)); h++) {
@@ -177,11 +179,11 @@ NS_HD void ntt_stage(uint64_t* v, uint32_t lo, const Tw& tw) {
         }
     }
     if constexpr (T + 1 < ntt_round_len(L, I))
-        ntt_stage<L, I, T + 1>(v, lo, tw);
+        ntt_stage<L, I, T + 1, UNIT>(v, lo, tw);
 }
 
 // Round I's stages on the registers of thread f.
-template <int L, int I, class Tw>
+template <int L, int I, bool UNIT = true, class Tw>
 NS_HD void ntt_round(uint64_t* v, uint32_t f, const Tw& tw) {
-    ntt_stage<L, I, 0>(v, f & ((1u << ntt_reg_base(L, I)) - 1), tw);
+    ntt_stage<L, I, 0, UNIT>(v, f & ((1u << ntt_reg_base(L, I)) - 1), tw);
 }

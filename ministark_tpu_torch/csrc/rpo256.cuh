@@ -1,6 +1,7 @@
 // RPO-256 (Rescue Prime Optimized, eprint 2022/1577) over Goldilocks: the
-// permutation of one 12-element state, shared by the CUDA kernels
-// (csrc/rpo256.cu, nvcc, sm_90a) and by host C++ (g++, for the CPU tests).
+// parameters and the permutation of one 12-element state, shared by the
+// CUDA kernels (csrc/rpo256.cu through rpo256_lanes.cuh, nvcc, sm_90a) and
+// by host C++ (g++, the CPU tests, where rpo_permute is the reference).
 //
 // State width 12, capacity 4, rate 8, digest = state[4..8], 7 rounds; a
 // round is MDS + RC0, x^7, MDS + RC1, x^(1/7).  The parameters are the

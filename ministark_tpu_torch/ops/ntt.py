@@ -12,7 +12,8 @@ where `pre` and `tmat` are (n1, C) tables shared by every batch.  Columns
 of up to ``MAX_N1`` rows run kernel B, one launch with every stage in
 registers and shared memory (csrc/ntt_sched.cuh has its schedule); longer
 ones (transforms of more than 2^28 points) run the multi-pass kernel, one
-launch per stage over device memory.
+launch per pass of up to ``PASS_MAX_LOG`` stages over device memory
+(csrc/ntt_pass.cuh has its schedule): two passes up to 2^16 rows.
 """
 
 from __future__ import annotations
@@ -30,10 +31,19 @@ KERNEL = build.register(
     prototypes={"ms_col_ntt": (build.PTR,) * 5 + (build.I64,) * 4})
 KERNEL_STAGE = build.register(
     "ntt_stage", "ntt.cu",
-    replaces="ministark_tpu/ops/ntt_pallas.py:94 _col_ntt_kernel")
+    replaces="ministark_tpu/ops/ntt_pallas.py:94 _col_ntt_kernel",
+    prototypes={"ms_col_ntt_pass": (build.PTR,) * 5 + (build.I64,) * 5})
 
 # Longest column kernel B takes (NTT_MAX_LOG in csrc/ntt_sched.cuh).
 MAX_N1 = 1 << 14
+# Stages a pass of the multi-pass kernel at most (NTT_PASS_MAX_LOG in
+# csrc/ntt_pass.cuh).
+PASS_MAX_LOG = 8
+
+
+def num_passes(log_n1: int) -> int:
+    """Launches of the multi-pass kernel for a column of 2^log_n1 rows."""
+    return max(1, -(-log_n1 // PASS_MAX_LOG))
 
 
 @functools.lru_cache(maxsize=32)
@@ -105,18 +115,19 @@ def col_ntt(x, tw, pre=None, tmat=None):
 
 
 def col_ntt_staged(x, tw, pre=None, tmat=None):
-    """The same function on a CUDA tensor by the multi-pass kernel: a
-    bit-reversing gather (times `pre`) into a new tensor, then one launch
-    per radix-2 stage in place on it, `tmat` folded into the last.
-    ``col_ntt`` takes it for columns longer than ``MAX_N1``."""
+    """The same function on a CUDA tensor by the multi-pass kernel: the
+    first pass gathers the rows bit-reversed (times `pre`) into a new
+    tensor and runs the first stages, each later pass runs the next ones
+    in place on it, the last folds `tmat`.  ``col_ntt`` takes it for
+    columns longer than ``MAX_N1``."""
     x, tw = _check(x, tw, pre, tmat)
     B, n1, C = x.shape
     log_n1 = n1.bit_length() - 1
     y = torch.empty_like(x)
-    null = build.ptr_or_null
-    for stage in range(log_n1 + 1):
-        KERNEL_STAGE.launch("ms_col_ntt_stage", build.ptr(x), build.ptr(y),
-                            build.ptr(tw), null(pre), null(tmat),
-                            build.i64(B), build.i64(n1), build.i64(C),
-                            build.i64(log_n1), build.i64(stage))
+    for p in range(num_passes(log_n1)):
+        KERNEL_STAGE.launch("ms_col_ntt_pass", x.data_ptr(), y.data_ptr(),
+                            tw.data_ptr(),
+                            None if pre is None else pre.data_ptr(),
+                            None if tmat is None else tmat.data_ptr(), B,
+                            n1, C, log_n1, p)
     return y

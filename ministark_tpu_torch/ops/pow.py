@@ -3,8 +3,9 @@ src/random.rs:48-55; mirrors ``ministark_tpu.ops.pow.grind_rpo``): the
 SMALLEST nonce >= 1 whose digest ``hash_rpo.merge_with_int(seed, nonce)``
 has at least `bits` leading zero bits, searched a batch of nonces at a
 time.  On a CUDA device each batch is one launch of kernel G's grind entry
-point (csrc/rpo256.cu); on the CPU each batch runs through the plain
-permutation.  SHA-256 coins grind on the host (``random.PublicCoin``).
+point (csrc/rpo256.cu), one nonce a group of lanes; on the CPU each batch
+runs through the plain permutation.  SHA-256 coins grind on the host
+(``random.PublicCoin``).
 """
 
 from __future__ import annotations
@@ -14,10 +15,12 @@ import torch
 from . import build
 from . import rpo256 as krpo
 
+_P, _I = build.PTR, build.I64
 KERNEL = build.register(
     "rpo256_grind", "rpo256.cu",
     replaces="ministark_tpu/ops/rpo256_pallas.py:136 _rpo_kernel "
-             "(ministark_tpu/ops/pow.py:97 _grind_rpo_batch)")
+             "(ministark_tpu/ops/pow.py:97 _grind_rpo_batch)",
+    prototypes={"ms_rpo_grind": (_P, _I, _I, _I, _P, _P, _I)})
 
 # nonces per batch: a b-bit grind expects 2^b tries, so on the card a batch
 # of 4 * 2^b (at most 2^20) nonces usually ends it in one launch; the CPU's
@@ -76,9 +79,9 @@ def grind_batch(seed: torch.Tensor, start: int, n: int, bits: int,
     if lz is not None:
         build.check_cuda(lz, dtype=torch.int32, name="lz")
     best = torch.full((1,), n, dtype=torch.int32, device=seed.device)
-    KERNEL.launch("ms_rpo_grind", build.ptr(seed), build.i64(start),
-                  build.i64(n), build.i64(bits), build.ptr(best),
-                  build.ptr_or_null(lz))
+    KERNEL.launch("ms_rpo_grind", seed.data_ptr(), start, n, bits,
+                  best.data_ptr(), None if lz is None else lz.data_ptr(),
+                  krpo.lane_elems(n))
     idx = int(best.item())
     return idx if idx < n else -1
 

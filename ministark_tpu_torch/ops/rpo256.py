@@ -80,9 +80,40 @@ ROUND_CONSTANTS_0 = np.array([[_from_mont(v) for v in row] for row in _RC0_MONT]
 ROUND_CONSTANTS_1 = np.array([[_from_mont(v) for v in row] for row in _RC1_MONT],
                              dtype=np.uint64)
 
+_P, _I = build.PTR, build.I64
 KERNEL = build.register(
     "rpo256", "rpo256.cu",
-    replaces="ministark_tpu/ops/rpo256_pallas.py:136 _rpo_kernel")
+    replaces="ministark_tpu/ops/rpo256_pallas.py:136 _rpo_kernel",
+    prototypes={"ms_rpo_hash_rows": (_P, _P) + (_I,) * 5,
+                "ms_rpo_merge": (_P, _P, _P, _I, _I)})
+KERNEL_TREE = build.register(
+    "rpo256_tree", "rpo256.cu",
+    replaces="ministark_tpu/ops/rpo256_pallas.py:243 tree_levels_lanes_br",
+    prototypes={"ms_rpo_tree_tops": (_P, _P, _I)})
+
+# Kernel G spreads each state over a group of lanes (csrc/rpo256_lanes.cuh),
+# ``lane_elems(n)`` elements a lane; a tree level of at most TOPS_LEAVES
+# digests has every level above it built by one launch of one block.
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W, in turns
+# (scripts/ab_kernels.py --rpo-sweep): 1 element a lane wins below 2^13
+# states (4096 merges 0.069 against 0.073 ms), 3 from there (8192: 0.096
+# against 0.117 ms; 2^22: 44.9 ms); the tops launch over the last 64
+# leaves takes a 2^15-leaf tree from 0.818 to 0.745 ms (with 3 elements a
+# lane over the last 64-256 leaves, 1.10-1.18 ms), so it runs 1 element a
+# lane whatever the merges below it took.  One state a
+# thread lost to both at every size from 1 to 2^23 states (one merge 0.48
+# against 0.035 ms, 2^22 merges 53.7 against 44.9 ms, 2^23 rows of 8
+# columns 115.8 against 85.4 ms) and is gone.
+WIDE_LANES_FROM = 1 << 13
+TOPS_LEAVES = 64
+
+
+def lane_elems(n: int) -> int:
+    """Elements of a state a lane for a launch of n states: 1 (12 of 16
+    lanes, the shortest permutation) below WIDE_LANES_FROM, else 3 (4
+    lanes, the most permutations a second)."""
+    return 3 if n >= WIDE_LANES_FROM else 1
+
 
 _MASK32 = 0xFFFFFFFF
 
@@ -188,9 +219,8 @@ def merge_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
 def _hash_strided(x: torch.Tensor, n: int, ncols: int, rs: int,
                   cs: int) -> torch.Tensor:
     out = torch.empty((n, DIGEST_SIZE), dtype=torch.int64, device=x.device)
-    KERNEL.launch("ms_rpo_hash_rows", build.ptr(x), build.ptr(out),
-                  build.i64(n), build.i64(ncols), build.i64(rs),
-                  build.i64(cs))
+    KERNEL.launch("ms_rpo_hash_rows", x.data_ptr(), out.data_ptr(), n, ncols,
+                  rs, cs, lane_elems(n))
     return out.view(torch.uint8)
 
 
@@ -236,9 +266,34 @@ def merge(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     for name, t in (("left", le), ("right", ri)):
         build.check_cuda(t, name=name)
     out = torch.empty_like(le)
-    KERNEL.launch("ms_rpo_merge", build.ptr(le), build.ptr(ri),
-                  build.ptr(out), build.i64(le.shape[0]))
+    n = le.shape[0]
+    KERNEL.launch("ms_rpo_merge", le.data_ptr(), ri.data_ptr(),
+                  out.data_ptr(), n, lane_elems(n))
     return out.view(torch.uint8)
+
+
+def tree_tops(level: torch.Tensor) -> list[torch.Tensor]:
+    """Every tree level above `level`, (m, 32) uint8 digests in tree-bitrev
+    storage (m a power of two, 2 <= m <= TOPS_LEAVES): level h holds the
+    merges of the two halves of the level below, the root's level last.
+    One launch builds them all into one buffer, one element of a state a
+    lane, and the levels are views of it.  Card only: its plain version is
+    ``merge_plain`` a level at a time, which ``merkle.tree_levels`` runs
+    for CPU tensors."""
+    m = level.shape[0]
+    if m < 2 or m & (m - 1) or m > TOPS_LEAVES:
+        raise ValueError(f"tree tops need 2 <= m <= {TOPS_LEAVES} digests, "
+                         f"m a power of two; got {m}")
+    d = _digest_elems(level)
+    build.check_cuda(d, name="level")
+    out = torch.empty((m - 1, DIGEST_SIZE), dtype=torch.int64,
+                      device=d.device)
+    KERNEL_TREE.launch("ms_rpo_tree_tops", d.data_ptr(), out.data_ptr(), m)
+    levels, start, h = [], 0, m // 2
+    while h:
+        levels.append(out[start:start + h].view(torch.uint8))
+        start, h = start + h, h // 2
+    return levels
 
 
 def grind(seed: bytes, bits: int, device) -> int:

@@ -22,6 +22,8 @@ KERNEL_EXT3 = build.register(
 # no device grind: SHA-256 coins grind on the host
 # (``random.PublicCoin.grind_proof_of_work``)
 grind = None
+# no tree-tops launch: every level of a SHA-256 tree is one merge launch
+tree_tops = None
 
 _K = (
     0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,

@@ -1,29 +1,43 @@
 #!/usr/bin/env python3
-"""Kernels A (batch inverse), B (column NTT) and C (transpose) against an
-earlier version of their sources, on one card, at the shapes of
-chip_smoke.py's paths.
+"""Kernels A (batch inverse), B (column NTT), C (transpose), the multi-pass
+NTT and G (RPO-256) against an earlier version of their sources, on one
+card, at the shapes of chip_smoke.py's paths.
 
     git show <commit>:ministark_tpu_torch/csrc/ntt.cu > DIR/ntt.cu
     git show <commit>:ministark_tpu_torch/csrc/transpose.cu > DIR/transpose.cu
     git show <commit>:ministark_tpu_torch/csrc/inv.cu > DIR/inv.cu
+    git show <commit>:ministark_tpu_torch/csrc/rpo256.cu > DIR/rpo256.cu
     git show <commit>:ministark_tpu_torch/csrc/goldilocks.cuh > DIR/goldilocks.cuh
-    python3 scripts/ab_kernels.py DIR [--reps N] [--paths F,B,W,L]
-                                      [--inv-variants]
+    python3 scripts/ab_kernels.py DIR [--reps N] [--paths F,B,W,L,R,H]
+                                      [--inv-variants] [--rpo-sweep]
 
-Builds each of the three sources found in DIR with the port's nvcc flags
-into DIR, its includes looked up in DIR before csrc/ (so an old inv.cu
-takes its own goldilocks.cuh), and loads it beside the current kernels
-(the old entry points: ``ms_col_ntt`` with its tile width argument,
-``ms_transpose``, ``ms_inv_fp`` and ``ms_inv_ext3``).  For every shape it
-checks that old and new give the same values, then times them in turns
-(old, new, new, old; CUDA events over ``reps`` launches each, after a
-warm-up) and prints the mean of each version's two turns; one JSON line
-at the end.  Paths as in chip_smoke.py: F (fib 2^24 values: the
-2^23-point 8-column LDE, one 2^23-value inverse), B (brainfuck 2^20 rows:
-2^24-point LDEs of 17, 27 and 48 planes, the three Fp denominators and
-the three Fq3 DEEP rows of 2^24 values to invert), W (hello_world: the
-same at 2^15 points), L (the 2^29-point LDE's three kernel-B passes and
-two transposes; no inverse).
+Builds each of the sources found in DIR with the port's nvcc flags into
+DIR, its includes looked up in DIR before csrc/ (so an old inv.cu takes
+its own goldilocks.cuh, an old ntt.cu its own ntt_sched.cuh), and loads
+it beside the current kernels (the old entry points: ``ms_col_ntt``,
+``ms_col_ntt_stage``, one launch a stage, ``ms_transpose``, ``ms_inv_fp``,
+``ms_inv_ext3``, ``ms_rpo_hash_rows``, ``ms_rpo_merge``, ``ms_rpo_grind``).
+For every shape it checks that old and new give the same values, then
+times them in turns (old, new, new, old; CUDA events over ``reps``
+launches each, after a warm-up) and prints the mean of each version's two
+turns; one JSON line at the end.  Paths as in chip_smoke.py: F (fib 2^24
+values: the 2^23-point 8-column LDE, one 2^23-value inverse), B
+(brainfuck 2^20 rows: 2^24-point LDEs of 17, 27 and 48 planes, the three
+Fp denominators and the three Fq3 DEEP rows of 2^24 values to invert), W
+(hello_world: the same at 2^15 points), L (the 2^29-point LDE's three
+kernel-B passes, two transposes and the multi-pass NTT's 2^15-row pass;
+no inverse; the multi-pass NTT also at n1 = 2^12 and 2^16), R (the fully
+algebraic fib: its rpo256 row's four parts, a whole 2^23-leaf tree, the
+8-bit grind's 1024 nonces) and H (hello_world RPO: its rpo256 row's five
+parts, a whole 2^15-leaf tree, the 20-bit grind's 2^20 nonces).
+
+With an old rpo256.cu, ``--rpo-sweep`` also times kernel G's layouts
+against the old kernel, each in turns with the others (every variant,
+then again in reverse order): one tree level of n merges for n = 1 ..
+2^22, the R and H proves' row hashes and both grind batches, by the old
+kernel and by the new one with E = 1 and 3 elements of a state a lane
+(the crossover ``ops/rpo256.py`` takes), and a 2^15-leaf tree with the
+tops launch taking the last 16 .. 64 leaves or none.
 
 ``--inv-variants`` also builds csrc/inv.cu with one entry point for each
 kernel A variant (the group size K, the group kept in registers or read
@@ -39,7 +53,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import math
 import os
 import re
 import subprocess
@@ -48,8 +61,10 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-PROTOS = {"ntt": ("ms_col_ntt",), "transpose": ("ms_transpose",),
-          "inv": ("ms_inv_fp", "ms_inv_ext3")}
+PROTOS = {"ntt": ("ms_col_ntt", "ms_col_ntt_stage"),
+          "transpose": ("ms_transpose",),
+          "inv": ("ms_inv_fp", "ms_inv_ext3"),
+          "rpo256": ("ms_rpo_hash_rows", "ms_rpo_merge", "ms_rpo_grind")}
 
 
 def _nvcc(src, out, include, *extra):
@@ -77,7 +92,8 @@ def build_old(old_dir):
             raise RuntimeError(f"building the old {name}.cu failed:\n{err}")
         libs[name] = ctypes.CDLL(out)
         for fn in PROTOS[name]:
-            getattr(libs[name], fn).restype = ctypes.c_int
+            if hasattr(libs[name], fn):
+                getattr(libs[name], fn).restype = ctypes.c_int
     return libs
 
 
@@ -154,14 +170,207 @@ def build_inv_variants(out_dir):
     return lib, report
 
 
+def rpo_ab(args, paths, old, rand, stream, record, record_variants, dev,
+           results):
+    """Kernel G, old against new, at R's and H's shapes (see the module
+    docstring)."""
+    import torch
+
+    from ministark_tpu_torch import hash_rpo, merkle
+    from ministark_tpu_torch.ops import build
+    from ministark_tpu_torch.ops import pow as kpow
+    from ministark_tpu_torch.ops import rpo256 as krpo
+
+    def elems(d):
+        return d.contiguous().view(torch.int64)
+
+    def old_merge(left, right):
+        le, ri = elems(left), elems(right)
+        out = torch.empty_like(le)
+        rc = old.ms_rpo_merge(build.ptr(le), build.ptr(ri), build.ptr(out),
+                              build.i64(le.shape[0]), stream())
+        assert rc == 0, rc
+        return out.view(torch.uint8)
+
+    def new_merge(left, right, e):
+        """The kernel with e elements of a state a lane."""
+        le, ri = elems(left), elems(right)
+        out = torch.empty_like(le)
+        krpo.KERNEL.launch("ms_rpo_merge", le.data_ptr(), ri.data_ptr(),
+                           out.data_ptr(), le.shape[0], e)
+        return out.view(torch.uint8)
+
+    def old_hash(x, n, ncols, rs, cs):
+        out = torch.empty((n, 4), dtype=torch.int64, device=dev)
+        rc = old.ms_rpo_hash_rows(build.ptr(x), build.ptr(out), build.i64(n),
+                                  build.i64(ncols), build.i64(rs),
+                                  build.i64(cs), stream())
+        assert rc == 0, rc
+        return out.view(torch.uint8)
+
+    def new_hash(x, n, ncols, rs, cs, e):
+        out = torch.empty((n, 4), dtype=torch.int64, device=dev)
+        krpo.KERNEL.launch("ms_rpo_hash_rows", x.data_ptr(), out.data_ptr(),
+                           n, ncols, rs, cs, e)
+        return out.view(torch.uint8)
+
+    def old_tree(leaves):
+        levels, cur = [leaves], leaves
+        while cur.shape[0] > 1:
+            h = cur.shape[0] // 2
+            cur = old_merge(cur[:h], cur[h:])
+            levels.append(cur)
+        return levels
+
+    def old_grind(seed, n, bits):
+        best = torch.full((1,), n, dtype=torch.int32, device=dev)
+        rc = old.ms_rpo_grind(build.ptr(seed), build.i64(1), build.i64(n),
+                              build.i64(bits), build.ptr(best), None,
+                              stream())
+        assert rc == 0, rc
+        return best
+
+    def new_grind(seed, n, bits, e):
+        best = torch.full((1,), n, dtype=torch.int32, device=dev)
+        kpow.KERNEL.launch("ms_rpo_grind", seed.data_ptr(), 1, n, bits,
+                           best.data_ptr(), None, e)
+        return best
+
+    def digests(n):
+        return rand(n, 4).view(torch.uint8)
+
+    def strided(x):
+        """A hash_rows input: (tensor, n, ncols, rs, cs)."""
+        n, ncols = x.shape
+        return (x, n, ncols) + tuple(x.stride())
+
+    def ext3(m):
+        C, _, n = m.shape
+        return (m, n, 3 * C, 1, n)
+
+    def tree_fn(leaves):
+        return lambda: torch.cat(merkle.tree_levels(leaves, hash_rpo))
+
+    def old_tree_fn(leaves):
+        return lambda: torch.cat(old_tree(leaves))
+
+    seed = kpow.seed_elements(bytes(range(7, 39)), dev)
+    for path in ("R", "H"):
+        if path not in paths:
+            continue
+        n = 1 << 23 if path == "R" else 1 << 15
+        if path == "R":
+            from ministark_tpu_torch.air import Air, ProofOptions
+            from ministark_tpu_torch.fields.scalar import Fp
+            from ministark_tpu_torch.models.fib import FibAirConfig
+
+            cb = Air(FibAirConfig, n // 4, Fp(0),
+                     ProofOptions(32, 4, 8, 8, 64)).ce_blowup_factor
+            rows = [strided(rand(8, n).T), strided(rand(cb, n).T),
+                    strided(rand(n // 8, 8))]
+        else:
+            rows = [strided(rand(17, n).T), ext3(rand(9, 3, n)),
+                    ext3(rand(16, 3, n)), ext3(rand(16, 3, n // 16))]
+        level = digests(n)
+        half = n // 2
+        parts = [({"old": lambda r=r: old_hash(*r),
+                   "new": lambda r=r: krpo._hash_strided(*r)}, r[1])
+                 for r in rows]
+        parts.append(({"old": lambda: old_merge(level[:half], level[half:]),
+                       "new": lambda: krpo.merge(level[:half], level[half:])},
+                      half))
+        record("rpo256", path, parts)
+        record("rpo256_tree", path,
+               [({"old": old_tree_fn(level), "new": tree_fn(level)}, n)])
+        bits = 8 if path == "R" else 20
+        batch = min(kpow.BATCH_CUDA, 1 << (bits + 2))
+        e = krpo.lane_elems(batch)  # the wrapper's layout for this batch
+        record("rpo256_grind", path,
+               [({"old": lambda: old_grind(seed, batch, bits),
+                  "new": lambda: new_grind(seed, batch, bits, e)}, batch)])
+        del rows, parts
+        torch.cuda.empty_cache()
+
+        del level
+        torch.cuda.empty_cache()
+    if args.rpo_sweep:
+        rpo_sweep(old_merge, new_merge, old_hash, new_hash, old_grind,
+                  new_grind, old_tree, digests, strided, ext3, rand, seed,
+                  record_variants)
+
+
+def rpo_sweep(old_merge, new_merge, old_hash, new_hash, old_grind, new_grind,
+              old_tree, digests, strided, ext3, rand, seed, record_variants):
+    """Kernel G against the old one, each in turns with the others: "old"
+    (the old kernel, one state a thread), "new_e1" and "new_e3" (1 or 3
+    elements of a state a lane)."""
+    import torch
+
+    from ministark_tpu_torch import hash_rpo, merkle
+    from ministark_tpu_torch.ops import rpo256 as krpo
+
+    def routes(old_fn, new_fn):
+        return {"old": old_fn, "new_e1": lambda: new_fn(1),
+                "new_e3": lambda: new_fn(3)}
+
+    # one tree level of k merges
+    for k in [1 << i for i in range(23)]:
+        d = digests(2 * k)
+        record_variants(
+            "rpo256 level", f"{k} merges",
+            routes(lambda: old_merge(d[:k], d[k:]),
+                   lambda e: new_merge(d[:k], d[k:], e)),
+            old_merge(d[:k], d[k:]), k)
+        del d
+    # the proves' row hashes: R's 2^23 rows of 8 and 4 columns and FRI rows
+    # (2^20 of 8), H's 2^15 rows of 17 columns, of 9 and 16 Fq3 columns
+    # and FRI rows (2^11 of 16 Fq3 values)
+    n, m = 1 << 23, 1 << 15
+    for name, r in (("R 8 columns", lambda: strided(rand(8, n).T)),
+                    ("R 4 columns", lambda: strided(rand(4, n).T)),
+                    ("R FRI rows", lambda: strided(rand(n // 8, 8))),
+                    ("H 17 columns", lambda: strided(rand(17, m).T)),
+                    ("H 9 Fq3 columns", lambda: ext3(rand(9, 3, m))),
+                    ("H 16 Fq3 columns", lambda: ext3(rand(16, 3, m))),
+                    ("H FRI rows", lambda: ext3(rand(16, 3, m // 16)))):
+        x = r()
+        record_variants("rpo256 rows", f"{x[1]} rows, {name}",
+                        routes(lambda: old_hash(*x), lambda e: new_hash(*x, e)),
+                        old_hash(*x), x[1])
+        del x
+        torch.cuda.empty_cache()
+    # grind batches: R's 8 bits (1024 nonces), H's 20 bits (2^20)
+    for batch, bits in ((1 << 10, 8), (1 << 20, 20)):
+        record_variants("rpo256_grind batch", f"{batch} nonces",
+                        routes(lambda: old_grind(seed, batch, bits),
+                               lambda e: new_grind(seed, batch, bits, e)),
+                        old_grind(seed, batch, bits), batch)
+    # a 2^15-leaf tree with the levels of at most `tops` leaves in one
+    # launch (0: none)
+    level = digests(m)
+    keep = krpo.TOPS_LEAVES
+    fns = {}
+    for tops in (0, 16, 32, 64):
+        def run(tops=tops):
+            krpo.TOPS_LEAVES = tops
+            try:
+                return torch.cat(merkle.tree_levels(level, hash_rpo))
+            finally:
+                krpo.TOPS_LEAVES = keep
+        fns[f"tops{tops}"] = run
+    record_variants("rpo256_tree tops", f"{m} leaves", fns,
+                    torch.cat(old_tree(level)), m)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("old_dir")
     ap.add_argument("--reps", type=int, default=0,
                     help="launches per timing (default 20 below 2^20 points "
                          "a launch, else 5)")
-    ap.add_argument("--paths", default="F,B,W,L")
+    ap.add_argument("--paths", default="F,B,W,L,R,H")
     ap.add_argument("--inv-variants", action="store_true")
+    ap.add_argument("--rpo-sweep", action="store_true")
     args = ap.parse_args()
     paths = args.paths.split(",")
     import torch
@@ -212,9 +421,22 @@ def main() -> int:
         rc = old["ntt"].ms_col_ntt(
             build.ptr(x), build.ptr(y), build.ptr(tw), null(pre), null(tmat),
             build.i64(B), build.i64(n1), build.i64(C),
-            build.i64(n1.bit_length() - 1),
-            build.i64(math.gcd(C, 16384 // n1)), stream())
+            build.i64(n1.bit_length() - 1), stream())
         assert rc == 0, rc
+        return y
+
+    def old_stage(x, tw, pre, tmat):
+        """The old multi-pass NTT: one launch a stage."""
+        B, n1, C = x.shape
+        y = torch.empty_like(x)
+        null = build.ptr_or_null
+        log_n1 = n1.bit_length() - 1
+        for stage in range(log_n1 + 1):
+            rc = old["ntt"].ms_col_ntt_stage(
+                build.ptr(x), build.ptr(y), build.ptr(tw), null(pre),
+                null(tmat), build.i64(B), build.i64(n1), build.i64(C),
+                build.i64(log_n1), build.i64(stage), stream())
+            assert rc == 0, rc
         return y
 
     def old_tr(x):
@@ -373,12 +595,12 @@ def main() -> int:
             del a, a3
             torch.cuda.empty_cache()
 
-    if "L" in paths and "ntt" in old and "transpose" in old:
+    t1, t2 = _split_n(1 << 27)
+    n1, n2 = _split_n(1 << 29)
+    if "L" in paths and "ntt" in old:
         # L: the 2^27-point inverse transform's two passes (tmat) and the
         # 2^29-point coset transform's first (pre and tmat), one column a
         # block
-        t1, t2 = _split_n(1 << 27)
-        n1, n2 = _split_n(1 << 29)
         passes = [(rand(1, rows, cols),
                    _stage_table(pow(Domain(rows * cols).group_gen, cols, P),
                                 rows, dev),
@@ -388,7 +610,31 @@ def main() -> int:
         record("ntt", "L", ntt_parts(passes))
         del passes
         torch.cuda.empty_cache()
+    if "L" in paths and "transpose" in old:
         record("transpose", "L", tr_parts([rand(1, t1, t2), rand(1, n1, n2)]))
+        torch.cuda.empty_cache()
+    if "L" in paths and hasattr(old.get("ntt"), "ms_col_ntt_stage"):
+        # the multi-pass NTT: the 2^29-point LDE's second pass (2^14
+        # columns of 2^15 rows), and n1 = 2^12 (the check against kernel B)
+        # and 2^16 on narrow columns, with pre and tmat
+        def stage_part(B, rows, cols, tables):
+            x = rand(B, rows, cols)
+            tw = _stage_table(pow(Domain(rows * cols).group_gen, cols, P),
+                              rows, dev)
+            pre = rand(rows, cols) if tables else None
+            tmat = rand(rows, cols) if tables else None
+            return ({"old": lambda: old_stage(x, tw, pre, tmat),
+                     "new": lambda: kntt.col_ntt_staged(x, tw, pre, tmat)},
+                    x.numel())
+
+        record("ntt_stage", "L", [stage_part(1, n2, n1, False)])
+        torch.cuda.empty_cache()
+        record("ntt_stage", "n1=2^12", [stage_part(2, 1 << 12, 64, True)])
+        record("ntt_stage", "n1=2^16", [stage_part(1, 1 << 16, 16, True)])
+
+    if "rpo256" in old:
+        rpo_ab(args, paths, old["rpo256"], rand, stream, record,
+               record_variants, dev, results)
 
     print(json.dumps({"card": card, "ab": results}), flush=True)
     return 0

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Warm proves of chip_smoke.py's five prove workloads from one tree, for
-comparing two commits on one card.
+"""Warm proves of chip_smoke.py's five prove workloads, and its 2^29-point
+LDE, from one tree, for comparing two commits on one card.
 
     git archive <commit> | tar -x -C DIR     # a git-ignored directory
-    python3 scripts/ab_proves.py DIR parent
-    python3 scripts/ab_proves.py . change
+    python3 scripts/ab_proves.py DIR parent [WORKLOAD ...]
+    python3 scripts/ab_proves.py . change [WORKLOAD ...]
 
 Imports the port and chip_smoke.py from the tree at ROOT (its first
-argument) and proves each of the workloads ``fib``, ``bf``, ``hello``,
-``fib_rpo`` and ``hello_rpo`` (``chip_smoke.workload``) three times in a
-row, the first cold (the first prove of all builds the kernels); prints
-one JSON line of the seconds, host clock around each prove ending in a
-synchronise, tagged with its second argument.  Run the two trees in turns in one call (parent,
-change, change, parent) and compare the warm runs.
+argument) and proves each of the workloads (default: ``fib``, ``bf``,
+``hello``, ``fib_rpo`` and ``hello_rpo``, ``chip_smoke.workload``) three
+times in a row, the first cold (the first prove of all builds the
+kernels); prints one JSON line of the seconds, host clock around each
+prove ending in a synchronise, tagged with its second argument.  The
+workload ``lde`` is chip_smoke.py's 2^29-point coset LDE of a 2^27-row
+column (``Matrix.interpolate`` then ``evaluate``), timed in device ms by
+CUDA events.  Run the two trees in turns in one call (parent, change,
+change, parent) and compare the warm runs.
 """
 
 from __future__ import annotations
@@ -21,6 +24,36 @@ import json
 import os
 import sys
 import time
+
+
+def lde_ms(torch):
+    """Device ms of three interpolate + evaluate runs of the 2^29-point
+    LDE (blowup 4 over 2^27 rows, coset offset 7)."""
+    from ministark_tpu_torch import ntt as tntt
+    from ministark_tpu_torch.fields import device as fd
+    from ministark_tpu_torch.matrix import Matrix
+
+    n = 1 << 27
+    trace_dom, lde_dom = tntt.Domain(n), tntt.Domain(4 * n, 7)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    col = Matrix(fd.canonicalize(torch.randint(
+        -(1 << 63), (1 << 63) - 1, (1, n), generator=g, device="cuda",
+        dtype=torch.int64)))
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        col.interpolate(trace_dom).evaluate(lde_dom)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del col
+    tntt._TABLE_CACHE.clear()
+    torch.cuda.empty_cache()
+    return times
 
 
 def main() -> int:
@@ -34,7 +67,11 @@ def main() -> int:
     import chip_smoke
 
     out = {"tree": tag}
-    for name in ("fib", "bf", "hello", "fib_rpo", "hello_rpo"):
+    names = sys.argv[3:] or ("fib", "bf", "hello", "fib_rpo", "hello_rpo")
+    for name in names:
+        if name == "lde":
+            out["lde_ms"] = lde_ms(torch)
+            continue
         claim, trace, opts, _info = chip_smoke.workload(name)
         times = []
         for _ in range(3):

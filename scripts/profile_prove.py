@@ -8,7 +8,8 @@ then runs one more warm prove under ``torch.profiler`` (CPU and CUDA
 activities) and prints one JSON line: the wall time of the profiled prove,
 the device busy time (the union of the device events' intervals) and its
 share of the wall, the device time per kernel name (top 15, summed over
-launches) and the hand-written kernels' share of the device time.  The
+launches), every hand-written kernel's device time and launches, and the
+hand-written kernels' share of the device time.  The
 workloads are chip_smoke.py's own (``chip_smoke.workload``): fib at 2^24
 values (bench.py's options), ``programs/fibonacci.bf`` cut to ten numbers
 (2^20 rows) and ``programs/hello_world.bf``, both with the 96-bit options,
@@ -27,9 +28,9 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # symbols of the hand-written kernels (csrc/*.cu and the generated evaluator)
 OWN_KERNELS = ("inv_fp_kernel", "inv_ext3_kernel", "col_ntt_kernel",
-               "col_ntt_stage_kernel", "transpose_kernel", "hash_rows_kernel",
+               "col_ntt_pass_kernel", "transpose_kernel", "hash_rows_kernel",
                "merge_kernel", "ms_eval_kernel", "deep_kernel",
-               "deep_ext3_kernel", "rpo_grind_kernel")
+               "deep_ext3_kernel", "rpo_grind_kernel", "tree_tops_kernel")
 
 
 def busy_ms(intervals) -> float:
@@ -71,13 +72,15 @@ def profile(torch, name) -> dict:
     own_ms = sum(v[0] for k, v in per_kernel.items()
                  if any(s in k for s in OWN_KERNELS))
     busy = busy_ms(intervals)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     return {"workload": name, "wall_ms": wall_ms, "device_busy_ms": busy,
             "busy_share": busy / wall_ms, "device_events": len(dev),
             "device_ms_summed": device_ms,
             "own_kernels_share": own_ms / device_ms if device_ms else None,
             "top": [{"name": k[:90], "ms": v[0], "launches": v[1]}
-                    for k, v in top]}
+                    for k, v in ranked[:15]],
+            "own": [{"name": k[:90], "ms": v[0], "launches": v[1]}
+                    for k, v in ranked if any(s in k for s in OWN_KERNELS)]}
 
 
 def main() -> int:

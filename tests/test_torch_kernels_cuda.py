@@ -18,7 +18,7 @@ pytestmark = pytest.mark.cuda
 P = 0xFFFFFFFF00000001
 KERNELS = ["inv", "ntt", "transpose", "sha256", "eval", "deep", "inv_ext3",
            "sha256_ext3", "eval_ext3", "deep_ext3", "ntt_stage", "rpo256",
-           "rpo256_grind"]
+           "rpo256_grind", "rpo256_tree"]
 
 
 @pytest.fixture
@@ -123,6 +123,26 @@ def test_kernel_matches_plain_on_card(dev, kernel):
             _same(torch, kntt.col_ntt_staged(x.to(dev), tw.to(dev),
                                              tmat=tmat.to(dev)),
                   kntt.col_ntt_plain(x, tw[:n1 // 2], tmat=tmat))
+        # every column length 2^0 .. 2^16 (one to two passes, each pass
+        # length and first or later), one column, a width of 6 or 40
+        # (tiles of 2 and 8 columns), each combination of the tables
+        for log_n1 in range(17):
+            n1 = 1 << log_n1
+            root = get_root_of_unity(n1).v if n1 > 1 else 1
+            tw = powers(root, max(n1 // 2, 1), "cpu")[: n1 // 2]
+            shapes = ((2, 1), (1, 6), (1, 40)) if n1 <= 4096 else ((1, 1),
+                                                                  (1, 6))
+            for (B, C), use_pre, use_tmat in itertools.product(
+                    shapes, (False, True), (False, True)):
+                seed = 300 * log_n1 + 10 * C + 2 * use_pre + use_tmat
+                x = _rand((B, n1, C), seed)
+                pre = _rand((n1, C), seed + 1) if use_pre else None
+                tmat = _rand((n1, C), seed + 2) if use_tmat else None
+                got = kntt.col_ntt_staged(
+                    x.to(dev), tw.to(dev),
+                    pre=None if pre is None else pre.to(dev),
+                    tmat=None if tmat is None else tmat.to(dev))
+                _same(torch, got, kntt.col_ntt_plain(x, tw, pre, tmat))
     elif kernel == "rpo256":
         from ministark_tpu_torch.fields.convert import from_u64_numpy
         from ministark_tpu_torch.ops import rpo256 as krpo
@@ -146,6 +166,50 @@ def test_kernel_matches_plain_on_card(dev, kernel):
         d = torch.randint(0, 256, (200, 32), dtype=torch.uint8, device=dev)
         _same(torch, krpo.merge(d[:100], d[100:]),
               krpo.merge_plain(d[:100], d[100:]))
+        # each group layout: 1 element a lane (16 lanes) and 3 (4 lanes)
+        edge_m = from_u64_numpy(np.resize(edge, (17, 3))).to(dev)
+        keep = krpo.WIDE_LANES_FROM
+        for wide_from in (0, 1 << 30):
+            krpo.WIDE_LANES_FROM = wide_from
+            try:
+                m = _rand((17, 3, 37), 31 + wide_from).to(dev)
+                _same(torch, krpo.hash_rows_ext3(m),
+                      krpo.hash_rows_ext3_plain(m))
+                _same(torch, krpo.hash_rows(edge_m.T),
+                      krpo.hash_rows_plain(edge_m.T))
+                d = torch.randint(0, 256, (66, 32), dtype=torch.uint8,
+                                  device=dev)
+                _same(torch, krpo.merge(d[:33], d[33:]),
+                      krpo.merge_plain(d[:33], d[33:]))
+            finally:
+                krpo.WIDE_LANES_FROM = keep
+    elif kernel == "rpo256_tree":
+        from ministark_tpu_torch import hash_rpo, merkle
+        from ministark_tpu_torch.ops import rpo256 as krpo
+
+        # every level above 2 .. 64 digests in one launch, against
+        # merge_plain level by level; whole trees through merkle.tree_levels
+        for m in (2, 4, 32, 64):
+            leaves = _rand((m, 4), m).view(torch.uint8)
+            got = krpo.tree_tops(leaves.to(dev))
+            assert len(got) == m.bit_length() - 1
+            cur = leaves
+            for g in got:
+                cur = krpo.merge_plain(cur[:cur.shape[0] // 2],
+                                       cur[cur.shape[0] // 2:])
+                _same(torch, g, cur)
+        for n in (2, 256, 1 << 12):
+            leaves = _rand((n, 4), n).view(torch.uint8)
+            got = merkle.tree_levels(leaves.to(dev), hash_rpo)
+            cur = leaves
+            for lvl in got[1:]:
+                cur = krpo.merge_plain(cur[:cur.shape[0] // 2],
+                                       cur[cur.shape[0] // 2:])
+                _same(torch, lvl, cur)
+            assert got[-1].shape == (1, 32)
+        with pytest.raises(ValueError):
+            krpo.tree_tops(torch.zeros((3, 32), dtype=torch.uint8,
+                                       device=dev))
     elif kernel == "rpo256_grind":
         from ministark_tpu_torch.ops import pow as kpow
 
@@ -157,6 +221,20 @@ def test_kernel_matches_plain_on_card(dev, kernel):
             assert got == kpow.grind_batch_plain(seed, start, 1000, 6)
         assert kpow.grind_rpo(bytes(range(32)), 6, dev) == kpow.grind_rpo(
             bytes(range(32)), 6, "cpu")
+        # each group layout on one batch
+        from ministark_tpu_torch.ops import rpo256 as krpo
+
+        want = kpow.leading_zeros_plain(seed, 5, 700)
+        keep = krpo.WIDE_LANES_FROM
+        for wide_from in (0, 1 << 30):
+            krpo.WIDE_LANES_FROM = wide_from
+            try:
+                lz = torch.empty(700, dtype=torch.int32, device=dev)
+                got = kpow.grind_batch(seed, 5, 700, 5, lz=lz)
+                _same(torch, lz, want)
+                assert got == kpow.grind_batch_plain(seed, 5, 700, 5)
+            finally:
+                krpo.WIDE_LANES_FROM = keep
     elif kernel == "transpose":
         from ministark_tpu_torch.ops import transpose as ktr
 
