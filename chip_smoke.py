@@ -14,11 +14,15 @@ RPO grind), and a 2^29-point coset LDE (the multi-pass column NTT).  Phases, any
      the brainfuck AIR (one source per term group) with nvcc, one process
      per source, all started together;
   3. run each kernel against its plain PyTorch version on the card, once
-     for each path that launches it, at that path's shapes: the six fib
-     kernels at the 2^24-value fib prove's, the eight of the brainfuck
-     path (the four Fq3 kernels and the ntt, transpose, sha256 and inv it
-     shares with fib) at the 2^20-row brainfuck prove's and again at
-     hello_world's, the RPO fib prove's eight (its five shared ones at the
+     for each path that launches it, at that path's shapes: the eight fib
+     kernels at the 2^24-value fib prove's, the ten of the brainfuck
+     path (the four Fq3 kernels and the ntt, transpose, sha256, inv,
+     SHA-256 grind and SHA-256 tree tops it shares with fib) at the
+     2^20-row brainfuck prove's and again at hello_world's (each SHA-256
+     path's grind on a seed made from its name, the nonce against the
+     native host grind's and a batch's counts of leading zeros against the
+     plain version; a whole SHA-256 tree of its LDE's leaves, merges and
+     the tops launch, compared on 2^18 leaves), the RPO fib prove's eight (its five shared ones at the
      fib prove's shapes; the RPO permutation's row hashes, merges and FRI
      rows; the RPO grind on one batch; a whole Merkle tree of its 2^23
      leaves, the merges and the tops launch, compared on a 2^18-leaf
@@ -31,9 +35,9 @@ RPO grind), and a 2^29-point coset LDE (the multi-pass column NTT).  Phases, any
      integer field math, so the tolerance is exact equality;
      print the kernel's time, the plain version's, the bound (the least time the
      card could take) and, where one PyTorch call computes the same
-     function, its time.  At hello_world's shapes the ntt and transpose
-     kernels (and the strided copy the transpose is held against) are
-     timed over 50 back-to-back launches, with their device time alone
+     function, its time.  At hello_world's shapes the ntt, transpose,
+     sha256 and sha256_ext3 kernels (and the strided copy the transpose is
+     held against) are timed over 50 back-to-back launches, with their device time alone
      (torch.profiler) and the host time of one call beside it.  The plain
      RPO permutation is some 16,000 elementwise launches, so at the fib
      path's shapes it is compared on a 2^18-state sample of the same
@@ -64,8 +68,8 @@ RPO grind), and a 2^29-point coset LDE (the multi-pass column NTT).  Phases, any
      kernel and path, with that path's launches), then the result.
 
 In phases 5-10 the counts of launches are reset just before the warm run
-and read just after, with per-phase CUDA-event times and peak device
-memory; the port's verifier must accept each proof (30 bits for fib, 96
+and read just after, with per-phase CUDA-event times (the warm prove's
+Proof of work phase printed on a line of its own) and peak device memory; the port's verifier must accept each proof (30 bits for fib, 96
 for brainfuck; on the host, in pure Python for RPO) and reject it with one
 byte flipped.  It imports nothing of JAX and nothing of ``ministark_tpu``.
 """
@@ -90,15 +94,17 @@ FIB, BF = "fib_2e24", "bf_fibonacci_2e20"  # the SHA-256 paths' proves
 HELLO = "bf_hello_world"  # bench.py's latency line
 FIB_RPO, BF_RPO = "fib_rpo_2e24", "bf_hello_world_rpo"  # the RPO paths'
 LDE = "lde_2e29"
-FIB_PATH = ("inv", "ntt", "transpose", "sha256", "eval", "deep")
+FIB_PATH = ("inv", "ntt", "transpose", "sha256", "eval", "deep",
+            "sha256_grind", "sha256_tree")
 BF_PATH = ("inv", "ntt", "transpose", "sha256", "inv_ext3", "sha256_ext3",
-           "eval_ext3", "deep_ext3")
+           "eval_ext3", "deep_ext3", "sha256_grind", "sha256_tree")
 FIB_RPO_PATH = ("inv", "ntt", "transpose", "eval", "deep", "rpo256",
                 "rpo256_grind", "rpo256_tree")
 BF_RPO_PATH = ("inv", "ntt", "transpose", "inv_ext3", "eval_ext3",
                "deep_ext3", "rpo256", "rpo256_grind", "rpo256_tree")
 LDE_PATH = ("ntt", "transpose", "ntt_stage")
 RPO_SAMPLE = 1 << 18  # states the plain RPO permutation is compared on
+SHA_SAMPLE = 1 << 18  # leaves and nonces the plain SHA-256 is compared on
 
 # The bound (bound_ms) is the larger of bytes over the memory rate and
 # 32-bit integer operations over the INT32 instruction rate, the peaks of
@@ -122,9 +128,17 @@ OPS_INV_CHAIN = 75 * OPS_MUL
 # An Fq3 inverse by the norm map: the adjugate (6 products), the norm (3),
 # one batched Fp inverse, and the three products by it.
 OPS_INV3 = 12 * OPS_MUL + 8 * OPS_ADD + OPS_INV
-# SHA-256 counted in Hopper's three-input instructions (LOP3, IADD3) and
-# funnel shifts: 14 per round, 10 per scheduled word.
-OPS_SHA_BLOCK = 64 * 14 + 48 * 10
+# SHA-256: its shifts and logic run on the INT32 (ALU) pipe alone, while
+# its adds may issue as IMAD on the FMA pipe beside them (ptxas puts about
+# 40% of a merge's adds there), so the least time counts the shifts and
+# the three-input logic (LOP3): 10 a round (six funnel shifts, four
+# LOP3), 8 a scheduled word (six shifts, two LOP3).  A block of padding
+# alone has a constant schedule (64 rounds); a grind nonce's rounds 0-7
+# read only the seed (56 rounds and the 48 scheduled words).
+OPS_SHA_ROUND, OPS_SHA_WORD = 10, 8
+OPS_SHA_BLOCK = 64 * OPS_SHA_ROUND + 48 * OPS_SHA_WORD
+OPS_SHA_PAD_BLOCK = 64 * OPS_SHA_ROUND
+OPS_SHA_GRIND = 56 * OPS_SHA_ROUND + 48 * OPS_SHA_WORD
 # RPO-256: 7 rounds of 12 x (4 + 72) products (x^7 and the x^(1/7) chain),
 # two MDS layers (each output 24 32x32->64 multiply-adds and its
 # reduction) and 24 round-constant adds
@@ -152,8 +166,13 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def sha_blocks(message_bytes: int) -> int:
-    return (message_bytes + 9 + 63) // 64
+def sha_ops(message_bytes: int) -> int:
+    """The least work of one SHA-256 of a message of this many bytes (a
+    multiple of 4): its blocks that hold data, then a block of padding
+    alone where the length does not fit the last of them."""
+    data = (message_bytes + 63) // 64
+    total = (message_bytes + 9 + 63) // 64
+    return data * OPS_SHA_BLOCK + (total - data) * OPS_SHA_PAD_BLOCK
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -459,8 +478,8 @@ def compare_fib_kernels(ck: Checker, fib_air_big, path, names):
         ck.check("sha256", path, part(sha_kernel, sha_plain),
                  8 * cols * lde_n + 32 * lde_n + 64 * (lde_n // 2)
                  + 32 * (lde_n // 2),
-                 (lde_n * sha_blocks(8 * cols) + lde_n // 2 * sha_blocks(64))
-                 * OPS_SHA_BLOCK, reps=2, plain_reps=2)
+                 lde_n * sha_ops(8 * cols) + lde_n // 2 * sha_ops(64), reps=2,
+                 plain_reps=2)
         del m, left, right
 
     # E: the fib AIR's generated evaluator over the CE domain
@@ -600,8 +619,8 @@ def compare_bf_kernels(ck: Checker, bf_air_big, path, names):
 
         ck.check("sha256", path, [sha_rows, sha_merges],
                  8 * nb * n + 32 * n + 64 * (n // 2) + 32 * (n // 2),
-                 (n * sha_blocks(8 * nb) + n // 2 * sha_blocks(64))
-                 * OPS_SHA_BLOCK, reps=2, plain_reps=1)
+                 n * sha_ops(8 * nb) + n // 2 * sha_ops(64),
+                 reps=50 if small else 2, plain_reps=1, launch_cost=small)
 
     # A (Fq3): the DEEP phase's barycentric inverses 1/(y - x), zeros
     # included
@@ -632,8 +651,8 @@ def compare_bf_kernels(ck: Checker, bf_air_big, path, names):
 
         ck.check("sha256_ext3", path, part(sha_kernel, sha_plain),
                  sum(8 * m.numel() + 32 * m.shape[2] for m in mats),
-                 sum(m.shape[2] * sha_blocks(24 * m.shape[0]) for m in mats)
-                 * OPS_SHA_BLOCK, reps=2, plain_reps=1)
+                 sum(m.shape[2] * sha_ops(24 * m.shape[0]) for m in mats),
+                 reps=50 if small else 2, plain_reps=1, launch_cost=small)
         del mats
 
     # E (Fq3): the brainfuck AIR's generated evaluator, one kernel per term
@@ -765,44 +784,91 @@ def compare_bf_rpo_kernels(ck: Checker, hello_air):
              + 32 * (n // fold), perms * OPS_RPO, reps=2, plain_reps=1)
 
 
-def tree_plain(krpo, leaves):
-    """Every level of the tree over `leaves` by merge_plain, the two halves
-    of each level merged, as one tensor."""
+def tree_plain(kmod, leaves):
+    """Every level of the tree over `leaves` by `kmod`'s merge_plain, the
+    two halves of each level merged, as one tensor."""
     import torch
 
     levels, cur = [leaves], leaves
     while cur.shape[0] > 1:
         h = cur.shape[0] // 2
-        cur = krpo.merge_plain(cur[:h], cur[h:])
+        cur = kmod.merge_plain(cur[:h], cur[h:])
         levels.append(cur)
     return torch.cat(levels)
 
 
-def compare_tree(ck: Checker, path, n, sample):
-    """A whole RPO Merkle tree over n leaf digests through
-    ``merkle.tree_levels`` (the path's largest tree: its merge launches and
-    the tops launch), timed at n; compared level by level with merge_plain
-    on a tree of `sample` leaves (all n where sample == n)."""
+def compare_tree(ck: Checker, path, n, sample, sha=False):
+    """A whole Merkle tree (RPO-256, or SHA-256 where `sha`) over n leaf
+    digests through ``merkle.tree_levels`` (the path's largest tree: its
+    merge launches and the tops launch), timed at n; compared level by
+    level with merge_plain on a tree of `sample` leaves (all n where
+    sample == n)."""
     import torch
 
+    from ministark_tpu_torch import hash as H
     from ministark_tpu_torch import hash_rpo, merkle
     from ministark_tpu_torch.ops import rpo256 as krpo
+    from ministark_tpu_torch.ops import sha256 as ksha
+
+    hashfn, kmod = (H, ksha) if sha else (hash_rpo, krpo)
 
     def make():
         leaves = digests(ck, n)
         small = leaves[:sample]
 
         def full():
-            return merkle.tree_levels(leaves, hash_rpo)
+            return merkle.tree_levels(leaves, hashfn)
 
-        return (lambda: torch.cat(merkle.tree_levels(small, hash_rpo)),
-                lambda: tree_plain(krpo, small), None,
+        return (lambda: torch.cat(merkle.tree_levels(small, hashfn)),
+                lambda: tree_plain(kmod, small), None,
                 *([full] if sample < n else []))
 
-    ck.check("rpo256_tree", path, [make], 32 * n + 32 * (n - 1),
-             (n - 1) * OPS_RPO, reps=2 if n > 1 << 20 else 20, plain_reps=1,
+    ck.check("sha256_tree" if sha else "rpo256_tree", path, [make],
+             32 * n + 32 * (n - 1),
+             (n - 1) * (sha_ops(64) if sha else OPS_RPO),
+             reps=2 if n > 1 << 20 else 20, plain_reps=1,
              plain_on=(f"a tree of {sample} of the {n} leaves"
                        if sample < n else None))
+
+
+def compare_sha_grind(ck: Checker, path, bits):
+    """The SHA-256 grind of `path` (`bits` bits) on a seed made from the
+    path's name: its nonce against the native host grind's, and every
+    nonce's count of leading zeros in its first batch (4 * 2^bits nonces,
+    at most 2^22; a 2^18-nonce sample where larger) against the plain
+    version; timed as the prover runs it (``ops.sha256.grind``: the
+    launches, and one read back each).  The bound counts the nonces up to
+    the one found."""
+    import hashlib
+
+    torch = ck.torch
+    from ministark_tpu_torch import native
+    from ministark_tpu_torch.ops import sha256 as ksha
+
+    seed = hashlib.sha256(path.encode()).digest()
+    nonce = ksha.grind(seed, bits, ck.dev)
+    want = native.pow_grind(seed, bits)
+    print(f"kernel sha256_grind ({path}): {bits}-bit nonce {nonce}, the "
+          f"native host grind's {want}", flush=True)
+    if nonce != want:
+        fail(f"the SHA-256 grind on {path} found {nonce}, the host {want}")
+    batch = min(ksha.BATCH_CUDA, 4 << bits)
+    sample = min(batch, SHA_SAMPLE)
+
+    def make():
+        lz = torch.empty(sample, dtype=torch.int32, device=ck.dev)
+
+        def kernel():
+            ksha.grind_batch(seed, 1, sample, bits, ck.dev, lz=lz)
+            return lz
+
+        return (kernel,
+                lambda: ksha.leading_zeros_plain(seed, 1, sample, ck.dev),
+                None, lambda: ksha.grind(seed, bits, ck.dev))
+
+    ck.check("sha256_grind", path, [make], 32 + 4, nonce * OPS_SHA_GRIND,
+             reps=20, plain_reps=1,
+             plain_on=f"the counts of the first {sample} nonces")
 
 
 def compare_grind(ck: Checker, path, bits):
@@ -1052,6 +1118,10 @@ def prove_timed(torch, build, claim, opts, trace, path, what):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     launches = read_counts(build, path, what)
+    pow_ = next(p for p in phases if p["phase"] == "Proof of work")
+    print(f"{what}: warm Proof of work {pow_['host_ms']:.3f} ms host, "
+          f"{pow_['device_ms']:.3f} ms device (nonce {proof.pow_nonce}, "
+          f"grind {opts.grinding_factor} bits)", flush=True)
     return proof, {"cold_prove_s": cold_s, "warm_prove_s": warm_s,
                    "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
                    "phases": phases, "launches": launches}
@@ -1205,6 +1275,13 @@ def main() -> int:
     compare_bf_kernels(ck, bf_air_big, BF, BF_PATH)
     compare_bf_kernels(ck, hello_air, HELLO, BF_PATH)
     torch.cuda.empty_cache()
+    hello_n = hello_air.lde_domain().size
+    for path, bits, n in ((FIB, FIB_OPTS[2], fib_air_big.lde_domain().size),
+                          (BF, BF_OPTS[2], bf_air_big.lde_domain().size),
+                          (HELLO, BF_OPTS[2], hello_n)):
+        compare_sha_grind(ck, path, bits)
+        compare_tree(ck, path, n, min(n, SHA_SAMPLE), sha=True)
+    torch.cuda.empty_cache()
     compare_fib_kernels(ck, fib_air_big, FIB_RPO, FIB_RPO_PATH)
     compare_fib_rpo_kernels(ck, fib_air_big)
     compare_bf_kernels(ck, hello_air, BF_RPO, BF_RPO_PATH)
@@ -1212,7 +1289,6 @@ def main() -> int:
     compare_grind(ck, FIB_RPO, FIB_OPTS[2])
     compare_grind(ck, BF_RPO, BF_OPTS[2])
     compare_tree(ck, FIB_RPO, fib_air_big.lde_domain().size, RPO_SAMPLE)
-    hello_n = hello_air.lde_domain().size
     compare_tree(ck, BF_RPO, hello_n, hello_n)
     torch.cuda.empty_cache()
     compare_lde_kernels(ck)
@@ -1238,7 +1314,9 @@ def main() -> int:
         if data != f.read():
             fail("the brainfuck proof differs from "
                  "tests/golden/brainfuck_2plus3.proof")
-    counts = read_counts(build, BF_PATH, "the golden brainfuck prove")
+    # grind 0: the golden brainfuck prove never grinds
+    counts = read_counts(build, [k for k in BF_PATH if k != "sha256_grind"],
+                         "the golden brainfuck prove")
     print(f"golden brainfuck proof: byte-identical ({len(data)} bytes); "
           f"launches {counts}", flush=True)
 
@@ -1315,9 +1393,6 @@ def main() -> int:
                                    BF_RPO_PATH, "the RPO hello_world prove")
     hello_rpo["verify_s"] = verify_and_tamper(
         claim, proof.to_bytes(Fq3), Fp, Fq3, 96, "RPO hello_world")
-    grind = next(p for p in hello_rpo["phases"] if p["phase"] == "Proof of work")
-    print(f"{BF_RPO}: 20-bit grind on the card {grind['device_ms']:.3f} ms "
-          f"(nonce {proof.pow_nonce})", flush=True)
     print(json.dumps({BF_RPO: {"card": card, **info, **hello_rpo}}),
           flush=True)
     del trace, claim, proof

@@ -59,14 +59,13 @@ class ProverChannel:
 
     # -- grind + queries -----------------------------------------------------
 
-    def grind_fri_commitments(self, grinder=None):
+    def grind_fri_commitments(self, grinder):
+        """grinder(seed, bits): the smallest valid nonce (the device grind
+        of the coin's hash)."""
         bits = self.air.options.grinding_factor
         if bits == 0:
             return
-        if grinder is not None:
-            nonce = grinder(self.public_coin.seed, bits)
-        else:
-            nonce = self.public_coin.grind_proof_of_work(bits)
+        nonce = grinder(self.public_coin.seed, bits)
         assert self.public_coin.verify_proof_of_work(bits, nonce)
         self.pow_nonce = nonce
         self.public_coin.reseed_with_int(nonce)

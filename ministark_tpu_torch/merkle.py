@@ -34,11 +34,9 @@ _DEVICE_HASH = {H: ksha, hash_rpo: krpo}
 def device_hash(hashfn):
     """The batched device module of host hash `hashfn`: ``hash_rows``,
     ``hash_rows_ext3`` and ``merge`` over (n, 32) uint8 digests,
-    ``grind(seed, bits, device)``, a coin's proof-of-work search on the
-    device (None where the coin grinds on the host), and
-    ``tree_tops(level)``, every level above a level of at most
-    ``TOPS_LEAVES`` digests of a CUDA tensor at once (None where each
-    level is a merge)."""
+    ``grind(seed, bits, device)``, a coin's proof-of-work search on
+    `device`, and ``tree_tops(level)``, every level above a level of at
+    most ``TOPS_LEAVES`` digests of a CUDA tensor at once."""
     try:
         return _DEVICE_HASH[hashfn]
     except KeyError:
@@ -68,14 +66,12 @@ class MerkleView:
 def tree_levels(storage: torch.Tensor, hashfn=H) -> list[torch.Tensor]:
     """All levels from leaf digests in tree-bitrev storage order: each level
     merges its two contiguous halves (one kernel launch per level, and on
-    the card one for all the levels near the root where the hash has
-    ``tree_tops``)."""
+    the card one for all the levels of at most ``TOPS_LEAVES`` nodes)."""
     dh = device_hash(hashfn)
     levels = [storage]
     cur = storage
     while cur.shape[0] > 1:
-        if (cur.is_cuda and dh.tree_tops is not None
-                and cur.shape[0] <= dh.TOPS_LEAVES):
+        if cur.is_cuda and cur.shape[0] <= dh.TOPS_LEAVES:
             return levels + dh.tree_tops(cur)
         half = cur.shape[0] // 2
         cur = dh.merge(cur[:half], cur[half:])

@@ -4,8 +4,8 @@ SMALLEST nonce >= 1 whose digest ``hash_rpo.merge_with_int(seed, nonce)``
 has at least `bits` leading zero bits, searched a batch of nonces at a
 time.  On a CUDA device each batch is one launch of kernel G's grind entry
 point (csrc/rpo256.cu), one nonce a group of lanes; on the CPU each batch
-runs through the plain permutation.  SHA-256 coins grind on the host
-(``random.PublicCoin``).
+runs through the plain permutation.  SHA-256 coins grind through kernel
+D (``ops.sha256.grind``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Batched SHA-256 for Merkle trees: wrappers for kernel D
-(csrc/sha256.cu) beside their plain PyTorch versions.
+"""Batched SHA-256 for Merkle trees and the proof-of-work grind of
+SHA-256 coins: wrappers for kernel D (csrc/sha256.cu) beside their plain
+PyTorch versions.
 
 Digests are (n, 32) uint8 tensors holding the standard digest bytes.  The
 plain versions hold 32-bit words in int64 tensors and mask after every
@@ -7,6 +8,8 @@ add and shift.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -19,11 +22,26 @@ KERNEL_EXT3 = build.register(
     "sha256_ext3", "sha256.cu",
     replaces="ministark_tpu/ops/sha256_pallas.py:171 hash_rows_ext3_lanes")
 
-# no device grind: SHA-256 coins grind on the host
-# (``random.PublicCoin.grind_proof_of_work``)
-grind = None
-# no tree-tops launch: every level of a SHA-256 tree is one merge launch
-tree_tops = None
+KERNEL_TREE = build.register(
+    "sha256_tree", "sha256.cu",
+    replaces="ministark_tpu/ops/sha256_pallas.py:190 build_tree_levels_lanes",
+    prototypes={"ms_sha_tree_tops": (build.PTR, build.PTR, build.I64)})
+KERNEL_GRIND = build.register(
+    "sha256_grind", "sha256.cu",
+    replaces="ministark_tpu/ops/pow.py:19 _grind_batch (over "
+             "ministark_tpu/ops/sha256.py:152 merge_with_int_words)",
+    prototypes={"ms_sha_grind": (ctypes.c_char_p, build.I64, build.I64,
+                                 build.I64, build.PTR, build.PTR)})
+
+# on the card, the levels of a tree from one of at most this many nodes up
+# to the root are one launch (a sweep of 16 .. 1024 on a 2^15-leaf tree
+# found no clear winner: PERF.md)
+TOPS_LEAVES = 64
+# nonces per grind batch: a b-bit grind expects 2^b tries, so on the card a
+# batch of 4 * 2^b (at most 2^22) nonces usually ends it in one launch;
+# the CPU's plain batches stay small
+BATCH_CUDA = 1 << 22
+BATCH_CPU = 1 << 12
 
 _K = (
     0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
@@ -198,3 +216,101 @@ def merge(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     KERNEL.launch("ms_merge", build.ptr(left), build.ptr(right),
                   build.ptr(out), build.i64(left.shape[0]))
     return out
+
+
+def tree_tops(level: torch.Tensor) -> list[torch.Tensor]:
+    """Every tree level above `level`, (m, 32) uint8 digests in tree-bitrev
+    storage (m a power of two, 2 <= m <= TOPS_LEAVES): level h holds the
+    merges of the two halves of the level below, the root's level last.
+    One launch builds them all into one buffer and the levels are views of
+    it.  Card only: its plain version is ``merge_plain`` a level at a time,
+    which ``merkle.tree_levels`` runs for CPU tensors."""
+    m = level.shape[0]
+    if m < 2 or m & (m - 1) or m > TOPS_LEAVES:
+        raise ValueError(f"tree tops need 2 <= m <= {TOPS_LEAVES} digests, "
+                         f"m a power of two; got {m}")
+    level = level.contiguous()
+    build.check_cuda(level, dtype=torch.uint8, name="level")
+    if level.shape[1:] != (32,):
+        raise ValueError(f"need (m, 32) digests, got {tuple(level.shape)}")
+    out = torch.empty((m - 1, 32), dtype=torch.uint8, device=level.device)
+    KERNEL_TREE.launch("ms_sha_tree_tops", level.data_ptr(), out.data_ptr(),
+                       m)
+    levels, start, h = [], 0, m // 2
+    while h:
+        levels.append(out[start:start + h])
+        start, h = start + h, h // 2
+    return levels
+
+
+# -- proof of work (reference: src/random.rs:48-55) ---------------------------
+
+def _seed_words(seed: bytes) -> list[int]:
+    if len(seed) != 32:
+        raise ValueError(f"need a 32-byte seed, got {len(seed)} bytes")
+    return [int.from_bytes(seed[4 * k:4 * k + 4], "big") for k in range(8)]
+
+
+def leading_zeros_plain(seed: bytes, start: int, n: int,
+                        device="cpu") -> torch.Tensor:
+    """Leading zero bits of sha256(seed || nonce as 8 big-endian bytes) for
+    the nonces start .. start + n - 1, (n,) int32 on `device`."""
+    nonce = start + torch.arange(n, dtype=torch.int64, device=device)
+    seed_w = torch.tensor(_seed_words(seed), dtype=torch.int64,
+                          device=device).expand(n, 8)
+    words = torch.cat([seed_w, ((nonce >> 32) & _M)[:, None],
+                       (nonce & _M)[:, None]], dim=1)
+    d = sha256_words_plain(words)                          # (n, 8)
+    # a word's leading zeros: 32 - its bit length
+    bitlen = sum((d >= (1 << k)).int() for k in range(32))
+    nonzero = d != 0
+    first = nonzero.int().argmax(1)                        # first nonzero word
+    z = 32 * first + 32 - bitlen.gather(1, first[:, None])[:, 0]
+    return torch.where(nonzero.any(1), z, 256).int()
+
+
+def grind_batch_plain(seed: bytes, start: int, n: int, bits: int) -> int:
+    ok = (leading_zeros_plain(seed, start, n) >= bits).nonzero()
+    return int(ok[0, 0]) if ok.numel() else -1
+
+
+def grind_batch(seed: bytes, start: int, n: int, bits: int, device,
+                lz: torch.Tensor | None = None) -> int:
+    """Index (from `start`) of the first nonce of the batch whose digest
+    has at least `bits` leading zero bits, or -1.  On a CUDA device one
+    launch of the kernel and one read back; `lz` (an (n,) int32 tensor
+    there), when given, receives every nonce's count of leading zeros.  On
+    the CPU the plain version."""
+    if torch.device(device).type != "cuda":
+        if lz is not None:
+            lz.copy_(leading_zeros_plain(seed, start, n))
+        return grind_batch_plain(seed, start, n, bits)
+    if len(seed) != 32:  # the kernel's launch reads 32 bytes from it
+        raise ValueError(f"need a 32-byte seed, got {len(seed)} bytes")
+    if not 0 < n < 2 ** 31 or not 0 <= start < 2 ** 63 - n:
+        raise ValueError(f"batch of {n} nonces from {start} out of range")
+    if lz is not None:
+        build.check_cuda(lz, dtype=torch.int32, name="lz")
+        if lz.numel() != n:
+            raise ValueError(f"lz holds {lz.numel()} counts, need {n}")
+    best = torch.full((1,), n, dtype=torch.int32, device=device)
+    KERNEL_GRIND.launch("ms_sha_grind", seed, start, n, bits,
+                        best.data_ptr(),
+                        None if lz is None else lz.data_ptr())
+    idx = int(best.item())
+    return idx if idx < n else -1
+
+
+def grind(seed: bytes, bits: int, device) -> int:
+    """Smallest nonce >= 1 with at least `bits` leading zero bits in
+    sha256(seed || nonce as 8 big-endian bytes) (``native.pow_grind``'s
+    answer), searched in batches in nonce order on `device`: the first
+    batch with a hit holds the smallest."""
+    cuda = torch.device(device).type == "cuda"
+    batch = min(BATCH_CUDA if cuda else BATCH_CPU, 4 << bits)
+    start = 1
+    while True:
+        idx = grind_batch(seed, start, batch, bits, device)
+        if idx >= 0:
+            return start + idx
+        start += batch

@@ -118,12 +118,10 @@ def default_prove(stark, options: ProofOptions, witness,
 
     # -- phase 6: PoW + queries (src/prover.rs:157-173) ----------------------
     with timer("Proof of work"):
-        # smallest valid nonce, on the device where the coin's hash has a
-        # device grind (RPO-256), else on the host (SHA-256)
+        # smallest valid nonce, searched on the device
         grind = merkle.device_hash(channel.public_coin.hashfn).grind
         channel.grind_fri_commitments(
-            None if grind is None
-            else lambda seed, bits: grind(seed, bits, dev))
+            lambda seed, bits: grind(seed, bits, dev))
     query_positions = channel.get_fri_query_positions()
 
     with timer("FRI decommit"):

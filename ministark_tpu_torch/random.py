@@ -129,21 +129,5 @@ class PublicCoin:
         digest = self.hashfn.merge_with_int(self.seed, nonce)
         return H.leading_zeros(digest) >= bits  # bit count is hash-agnostic
 
-    def grind_proof_of_work(self, bits: int) -> int:
-        """Host grind: smallest valid nonce >= 1 (deterministic; the
-        reference's parallel find_any returns an arbitrary valid nonce).
-        Uses the native C++ runtime when available; the batched device grind
-        lives in ops/pow.py."""
-        from . import native
-
-        if self.hashfn is H:
-            nonce = native.pow_grind(self.seed, bits)
-            if nonce is not None:
-                return nonce
-        nonce = 1
-        while not self.verify_proof_of_work(bits, nonce):
-            nonce += 1
-        return nonce
-
     def security_level_bits(self) -> int:
         return self.hashfn.COLLISION_RESISTANCE

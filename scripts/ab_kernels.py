@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Kernels A (batch inverse), B (column NTT), C (transpose), the multi-pass
-NTT and G (RPO-256) against an earlier version of their sources, on one
-card, at the shapes of chip_smoke.py's paths.
+"""Kernels A (batch inverse), B (column NTT), C (transpose), D (SHA-256),
+the multi-pass NTT and G (RPO-256) against an earlier version of their
+sources, on one card, at the shapes of chip_smoke.py's paths.
 
     git show <commit>:ministark_tpu_torch/csrc/ntt.cu > DIR/ntt.cu
     git show <commit>:ministark_tpu_torch/csrc/transpose.cu > DIR/transpose.cu
     git show <commit>:ministark_tpu_torch/csrc/inv.cu > DIR/inv.cu
     git show <commit>:ministark_tpu_torch/csrc/rpo256.cu > DIR/rpo256.cu
+    git show <commit>:ministark_tpu_torch/csrc/sha256.cu > DIR/sha256.cu
     git show <commit>:ministark_tpu_torch/csrc/goldilocks.cuh > DIR/goldilocks.cuh
     python3 scripts/ab_kernels.py DIR [--reps N] [--paths F,B,W,L,R,H]
                                       [--inv-variants] [--rpo-sweep]
@@ -16,7 +17,8 @@ DIR, its includes looked up in DIR before csrc/ (so an old inv.cu takes
 its own goldilocks.cuh, an old ntt.cu its own ntt_sched.cuh), and loads
 it beside the current kernels (the old entry points: ``ms_col_ntt``,
 ``ms_col_ntt_stage``, one launch a stage, ``ms_transpose``, ``ms_inv_fp``,
-``ms_inv_ext3``, ``ms_rpo_hash_rows``, ``ms_rpo_merge``, ``ms_rpo_grind``).
+``ms_inv_ext3``, ``ms_rpo_hash_rows``, ``ms_rpo_merge``, ``ms_rpo_grind``,
+``ms_hash_rows``, ``ms_merge``).
 For every shape it checks that old and new give the same values, then
 times them in turns (old, new, new, old; CUDA events over ``reps``
 launches each, after a warm-up) and prints the mean of each version's two
@@ -29,7 +31,13 @@ kernel-B passes, two transposes and the multi-pass NTT's 2^15-row pass;
 no inverse; the multi-pass NTT also at n1 = 2^12 and 2^16), R (the fully
 algebraic fib: its rpo256 row's four parts, a whole 2^23-leaf tree, the
 8-bit grind's 1024 nonces) and H (hello_world RPO: its rpo256 row's five
-parts, a whole 2^15-leaf tree, the 20-bit grind's 2^20 nonces).
+parts, a whole 2^15-leaf tree, the 20-bit grind's 2^20 nonces).  With an
+old sha256.cu, on F, B and W: the sha256 row's row hashes and one tree
+level of merges, the sha256_ext3 row's three Fq3 matrices (B, W), and a
+whole SHA-256 tree of the path's LDE leaves (the old kernel one merge
+launch a level; the new one its merges and the tops launch); on W also
+the tops launch from TOPS_LEAVES = 0 (none), 16, .., 1024 leaves, each in
+turns with the others (the sweep that sets ``ops/sha256.py``'s value).
 
 With an old rpo256.cu, ``--rpo-sweep`` also times kernel G's layouts
 against the old kernel, each in turns with the others (every variant,
@@ -64,7 +72,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROTOS = {"ntt": ("ms_col_ntt", "ms_col_ntt_stage"),
           "transpose": ("ms_transpose",),
           "inv": ("ms_inv_fp", "ms_inv_ext3"),
-          "rpo256": ("ms_rpo_hash_rows", "ms_rpo_merge", "ms_rpo_grind")}
+          "rpo256": ("ms_rpo_hash_rows", "ms_rpo_merge", "ms_rpo_grind"),
+          "sha256": ("ms_hash_rows", "ms_merge")}
 
 
 def _nvcc(src, out, include, *extra):
@@ -299,6 +308,99 @@ def rpo_ab(args, paths, old, rand, stream, record, record_variants, dev,
                   record_variants)
 
 
+def sha_ab(paths, old, rand, stream, record, record_variants, dev):
+    """Kernel D, old against new, at F's, B's and W's shapes (see the
+    module docstring)."""
+    import torch
+
+    from ministark_tpu_torch import hash as H
+    from ministark_tpu_torch import merkle
+    from ministark_tpu_torch.ops import build
+    from ministark_tpu_torch.ops import sha256 as ksha
+
+    def old_hash(x, n, ncols, rs, cs):
+        out = torch.empty((n, 32), dtype=torch.uint8, device=dev)
+        rc = old.ms_hash_rows(build.ptr(x), build.ptr(out), build.i64(n),
+                              build.i64(ncols), build.i64(rs), build.i64(cs),
+                              stream())
+        assert rc == 0, rc
+        return out
+
+    def old_merge(left, right):
+        out = torch.empty_like(left)
+        rc = old.ms_merge(build.ptr(left), build.ptr(right), build.ptr(out),
+                          build.i64(left.shape[0]), stream())
+        assert rc == 0, rc
+        return out
+
+    # the new entry points called as the old ones are (no wrapper checks),
+    # so that launch-bound shapes compare the kernels and not the wrappers
+    def new_hash(x, n, ncols, rs, cs):
+        out = torch.empty((n, 32), dtype=torch.uint8, device=dev)
+        ksha.KERNEL.launch("ms_hash_rows", build.ptr(x), build.ptr(out),
+                           build.i64(n), build.i64(ncols), build.i64(rs),
+                           build.i64(cs))
+        return out
+
+    def new_merge(left, right):
+        out = torch.empty_like(left)
+        ksha.KERNEL.launch("ms_merge", build.ptr(left), build.ptr(right),
+                           build.ptr(out), build.i64(left.shape[0]))
+        return out
+
+    def old_tree(leaves):
+        levels, cur = [leaves], leaves
+        while cur.shape[0] > 1:
+            h = cur.shape[0] // 2
+            cur = old_merge(cur[:h], cur[h:])
+            levels.append(cur)
+        return torch.cat(levels)
+
+    def digests(n):
+        return torch.randint(0, 256, (n, 32), dtype=torch.uint8, device=dev)
+
+    for path, n, nb in (("F", 1 << 23, 8), ("B", 1 << 24, 17),
+                        ("W", 1 << 15, 17)):
+        if path not in paths:
+            continue
+        x = rand(nb, n).T
+        level = digests(n)
+        half = n // 2
+        record("sha256", path, [
+            ({"old": lambda: old_hash(x, n, nb, *x.stride()),
+              "new": lambda: new_hash(x, n, nb, *x.stride())}, n),
+            ({"old": lambda: old_merge(level[:half], level[half:]),
+              "new": lambda: new_merge(level[:half], level[half:])}, half)])
+        del x
+        if path != "F":
+            mats = [rand(9, 3, n), rand(16, 3, n), rand(16, 3, n // 16)]
+            record("sha256_ext3", path, [
+                ({"old": lambda m=m: old_hash(m, m.shape[2], 3 * m.shape[0],
+                                              1, m.shape[2]),
+                  "new": lambda m=m: new_hash(m, m.shape[2], 3 * m.shape[0],
+                                              1, m.shape[2])}, m.shape[2])
+                for m in mats])
+            del mats
+        record("sha256_tree", path, [
+            ({"old": lambda: old_tree(level),
+              "new": lambda: torch.cat(merkle.tree_levels(level, H))}, n)])
+        if path == "W":
+            keep = ksha.TOPS_LEAVES
+            fns = {}
+            for tops in (0, 16, 32, 64, 128, 256, 512, 1024):
+                def run(tops=tops):
+                    ksha.TOPS_LEAVES = tops
+                    try:
+                        return torch.cat(merkle.tree_levels(level, H))
+                    finally:
+                        ksha.TOPS_LEAVES = keep
+                fns[f"tops{tops}"] = run
+            record_variants("sha256_tree tops", f"{n} leaves", fns,
+                            old_tree(level), n)
+        del level
+        torch.cuda.empty_cache()
+
+
 def rpo_sweep(old_merge, new_merge, old_hash, new_hash, old_grind, new_grind,
               old_tree, digests, strided, ext3, rand, seed, record_variants):
     """Kernel G against the old one, each in turns with the others: "old"
@@ -394,7 +496,9 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     old_dir = os.path.abspath(args.old_dir)
     old = build_old(old_dir)
-    for k in (kntt.KERNEL, ktr.KERNEL, kinv.KERNEL):
+    from ministark_tpu_torch.ops import sha256 as ksha
+
+    for k in (kntt.KERNEL, ktr.KERNEL, kinv.KERNEL, ksha.KERNEL):
         k.build()
     if args.inv_variants:
         variants, report = build_inv_variants(old_dir)
@@ -493,7 +597,11 @@ def main() -> int:
 
     def record(name, path, parts):
         """parts: ({"old": fn, "new": fn}, points) for each of the path's
-        launches; each version's times add up over them."""
+        launches; each version's times add up over them.  Below 2^20
+        points, where a launch costs the host more than the card, also the
+        device time alone (torch.profiler), in the same turns."""
+        import chip_smoke
+
         totals = {}
         for fns, points in parts:
             if not torch.equal(fns["old"](), fns["new"]()):
@@ -502,10 +610,19 @@ def main() -> int:
             reps = args.reps or (20 if points < (1 << 20) else 5)
             for v in ("old", "new", "new", "old"):
                 totals[v] = totals.get(v, 0.0) + events_ms(fns[v], reps) / 2
+                if points < 1 << 20:
+                    d = chip_smoke.device_only_ms(torch, fns[v], reps)
+                    key = f"{v}_device_only"
+                    totals[key] = (None if d is None or totals.get(key, 0.0)
+                                   is None else totals.get(key, 0.0) + d / 2)
         results.setdefault(name, {})[path] = totals
+        dev_only = ""
+        if "old_device_only" in totals:
+            dev_only = (f"; device only: old {totals['old_device_only']} ms, "
+                        f"new {totals['new_device_only']} ms")
         print(f"{name} ({path}): old {totals['old']:.3f} ms, new "
-              f"{totals['new']:.3f} ms, {totals['old'] / totals['new']:.2f}x",
-              flush=True)
+              f"{totals['new']:.3f} ms, {totals['old'] / totals['new']:.2f}x"
+              f"{dev_only}", flush=True)
 
     def record_variants(name, path, fns, want, points):
         """Every variant of `fns` ({name: fn}) equal to `want`, then timed
@@ -513,14 +630,24 @@ def main() -> int:
         for v, fn in fns.items():
             if not torch.equal(fn(), want):
                 raise SystemExit(f"ab_kernels: {v} on {path} differs")
+        import chip_smoke
+
         reps = args.reps or (20 if points < (1 << 20) else 5)
         order = list(fns)
         times = dict.fromkeys(order, 0.0)
+        dev_ms = dict.fromkeys(order, 0.0)
         for v in order + order[::-1]:
             times[v] += events_ms(fns[v], reps) / 2
+            if points < 1 << 20:
+                d = chip_smoke.device_only_ms(torch, fns[v], reps)
+                dev_ms[v] = (None if d is None or dev_ms[v] is None
+                             else dev_ms[v] + d / 2)
         results.setdefault(name, {})[path] = times
         for v in sorted(order, key=times.get):
-            print(f"{name} ({path}): {v} {times[v]:.3f} ms", flush=True)
+            extra = (f" (device only {dev_ms[v]} ms)" if points < 1 << 20
+                     else "")
+            print(f"{name} ({path}): {v} {times[v]:.3f} ms{extra}",
+                  flush=True)
 
     def inv_inputs(path):
         """Kernel A's inputs on `path`, zeros included: the Fp vector (F:
@@ -635,6 +762,9 @@ def main() -> int:
     if "rpo256" in old:
         rpo_ab(args, paths, old["rpo256"], rand, stream, record,
                record_variants, dev, results)
+    if "sha256" in old:
+        sha_ab(paths, old["sha256"], rand, stream, record, record_variants,
+               dev)
 
     print(json.dumps({"card": card, "ab": results}), flush=True)
     return 0

@@ -11,7 +11,8 @@ argument) and proves each of the workloads (default: ``fib``, ``bf``,
 ``hello``, ``fib_rpo`` and ``hello_rpo``, ``chip_smoke.workload``) three
 times in a row, the first cold (the first prove of all builds the
 kernels); prints one JSON line of the seconds, host clock around each
-prove ending in a synchronise, tagged with its second argument.  The
+prove ending in a synchronise, and each prove's "Proof of work" phase
+(host ms, under ``<workload>_pow_ms``), tagged with its second argument.  The
 workload ``lde`` is chip_smoke.py's 2^29-point coset LDE of a 2^27-row
 column (``Matrix.interpolate`` then ``evaluate``), timed in device ms by
 CUDA events.  Run the two trees in turns in one call (parent, change,
@@ -73,14 +74,18 @@ def main() -> int:
             out["lde_ms"] = lde_ms(torch)
             continue
         claim, trace, opts, _info = chip_smoke.workload(name)
-        times = []
+        times, pow_ms = [], []
         for _ in range(3):
+            phases: list = []
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            claim.prove(opts, trace)
+            claim.prove(opts, trace, phases)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+            pow_ms += [p["host_ms"] for p in phases
+                       if p["phase"] == "Proof of work"]
         out[name] = times
+        out[f"{name}_pow_ms"] = pow_ms
         del claim, trace
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)

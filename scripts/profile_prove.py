@@ -30,7 +30,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OWN_KERNELS = ("inv_fp_kernel", "inv_ext3_kernel", "col_ntt_kernel",
                "col_ntt_pass_kernel", "transpose_kernel", "hash_rows_kernel",
                "merge_kernel", "ms_eval_kernel", "deep_kernel",
-               "deep_ext3_kernel", "rpo_grind_kernel", "tree_tops_kernel")
+               "deep_ext3_kernel", "grind_kernel", "tree_tops_kernel")
 
 
 def busy_ms(intervals) -> float:

@@ -18,7 +18,7 @@ pytestmark = pytest.mark.cuda
 P = 0xFFFFFFFF00000001
 KERNELS = ["inv", "ntt", "transpose", "sha256", "eval", "deep", "inv_ext3",
            "sha256_ext3", "eval_ext3", "deep_ext3", "ntt_stage", "rpo256",
-           "rpo256_grind", "rpo256_tree"]
+           "rpo256_grind", "rpo256_tree", "sha256_grind", "sha256_tree"]
 
 
 @pytest.fixture
@@ -252,7 +252,10 @@ def test_kernel_matches_plain_on_card(dev, kernel):
     elif kernel == "sha256":
         from ministark_tpu_torch.ops import sha256 as ksha
 
-        for ncols, n in ((1, 5), (8, 300), (9, 64), (4, 16)):
+        # 7, 8 and 16 columns end in a block of padding alone (its
+        # schedule a launch constant)
+        for ncols, n in ((1, 5), (8, 300), (9, 64), (4, 16), (7, 33),
+                         (16, 20)):
             m = _rand((ncols, n), ncols * n).to(dev)
             _same(torch, ksha.hash_rows(m.T), ksha.hash_rows_plain(m.T))
             rows = m.reshape(n, ncols)
@@ -260,6 +263,67 @@ def test_kernel_matches_plain_on_card(dev, kernel):
         d = torch.randint(0, 256, (200, 32), dtype=torch.uint8, device=dev)
         _same(torch, ksha.merge(d[:100], d[100:]),
               ksha.merge_plain(d[:100], d[100:]))
+    elif kernel == "sha256_grind":
+        from ministark_tpu_torch import native
+        from ministark_tpu_torch.ops import sha256 as ksha
+
+        # the smallest nonce, as the native host grind finds it, at 1-20 bits
+        for bits in range(1, 21):
+            seed = bytes((bits * 7 + k) % 256 for k in range(32))
+            assert ksha.grind(seed, bits, dev) == native.pow_grind(
+                seed, bits), bits
+        # every nonce's count of leading zeros, across the carry into the
+        # high word, and the first hit of a batch
+        seed = bytes(range(32))
+        for start, n in ((1, 1000), ((1 << 32) - 300, 700), (5, 129)):
+            lz = torch.empty(n, dtype=torch.int32, device=dev)
+            got = ksha.grind_batch(seed, start, n, 6, dev, lz=lz)
+            _same(torch, lz, ksha.leading_zeros_plain(seed, start, n))
+            assert got == ksha.grind_batch_plain(seed, start, n, 6)
+            # without lz, blocks past a hit stop: the same first hit
+            assert ksha.grind_batch(seed, start, n, 6, dev) == got
+        assert ksha.grind_batch(seed, 1, 100, 40, dev) == -1
+    elif kernel == "sha256_tree":
+        from ministark_tpu_torch import hash as H
+        from ministark_tpu_torch import merkle
+        from ministark_tpu_torch.ops import sha256 as ksha
+
+        def plain_levels(leaves):
+            cur, out = leaves, []
+            while cur.shape[0] > 1:
+                h = cur.shape[0] // 2
+                cur = ksha.merge_plain(cur[:h], cur[h:])
+                out.append(cur)
+            return out
+
+        def leaves_of(m):
+            return torch.from_numpy(np.random.default_rng(m).integers(
+                0, 256, (m, 32), dtype=np.uint8))
+
+        # every level above 2 .. TOPS_LEAVES digests in one launch, and
+        # above up to the 1024 the kernel takes
+        keep = ksha.TOPS_LEAVES
+        try:
+            ksha.TOPS_LEAVES = 1024
+            for m in [1 << k for k in range(1, 11)]:
+                leaves = leaves_of(m)
+                got = ksha.tree_tops(leaves.to(dev))
+                want = plain_levels(leaves)
+                assert len(got) == len(want) == m.bit_length() - 1
+                for g, w in zip(got, want):
+                    _same(torch, g, w)
+        finally:
+            ksha.TOPS_LEAVES = keep
+        # whole trees through merkle.tree_levels: merges, then the tops
+        for n in (2, 64, 256, 1 << 15):
+            leaves = leaves_of(n)
+            got = merkle.tree_levels(leaves.to(dev), H)
+            assert len(got) == n.bit_length()
+            for g, w in zip(got[1:], plain_levels(leaves)):
+                _same(torch, g, w)
+        with pytest.raises(ValueError):
+            ksha.tree_tops(torch.zeros((3, 32), dtype=torch.uint8,
+                                       device=dev))
     elif kernel in ("eval", "eval_ext3"):
         from ministark_tpu_torch import eval as teval
         from ministark_tpu_torch.air import Air, ProofOptions
