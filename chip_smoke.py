@@ -10,23 +10,25 @@ trees and coin), hello_world with RPO-256 trees and coin (Fq3, the device
 RPO grind), and a 2^29-point coset LDE (the multi-pass column NTT).  Phases, any failure exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every hand-written kernel from ``ministark_tpu_torch/csrc`` and
-     the constraint evaluators generated for the fib AIR (one source) and
-     the brainfuck AIR (one source per term group) with nvcc, one process
-     per source, all started together;
+     the constraint evaluators generated for the fib AIR and the brainfuck
+     AIR (one source each) with nvcc, one process per source, all started
+     together;
   3. run each kernel against its plain PyTorch version on the card, once
-     for each path that launches it, at that path's shapes: the eight fib
-     kernels at the 2^24-value fib prove's, the ten of the brainfuck
-     path (the four Fq3 kernels and the ntt, transpose, sha256, inv,
-     SHA-256 grind and SHA-256 tree tops it shares with fib) at the
+     for each path that launches it, at that path's shapes: the nine fib
+     kernels at the 2^24-value fib prove's (kernel F's OOD sums,
+     ``ood_sums``, at the prove's pairs), the eleven of the brainfuck
+     path (the five Fq3 kernels, ``ood_sums_ext3`` among them, and the
+     ntt, transpose, sha256, inv, SHA-256 grind and SHA-256 tree tops it
+     shares with fib) at the
      2^20-row brainfuck prove's and again at hello_world's (each SHA-256
      path's grind on a seed made from its name, the nonce against the
      native host grind's and a batch's counts of leading zeros against the
      plain version; a whole SHA-256 tree of its LDE's leaves, merges and
-     the tops launch, compared on 2^18 leaves), the RPO fib prove's eight (its five shared ones at the
+     the tops launch, compared on 2^18 leaves), the RPO fib prove's nine (its six shared ones at the
      fib prove's shapes; the RPO permutation's row hashes, merges and FRI
      rows; the RPO grind on one batch; a whole Merkle tree of its 2^23
      leaves, the merges and the tops launch, compared on a 2^18-leaf
-     tree), hello_world RPO's nine (its six shared ones, the RPO
+     tree), hello_world RPO's ten (its seven shared ones, the RPO
      permutation, the grind, a whole tree of its 2^15 leaves) at
      hello_world's shapes, and the LDE's kernel B and transposes on both
      passes of its 2^27- and the first of its 2^29-point transform, and
@@ -36,8 +38,9 @@ RPO grind), and a 2^29-point coset LDE (the multi-pass column NTT).  Phases, any
      print the kernel's time, the plain version's, the bound (the least time the
      card could take) and, where one PyTorch call computes the same
      function, its time.  At hello_world's shapes the ntt, transpose,
-     sha256 and sha256_ext3 kernels (and the strided copy the transpose is
-     held against) are timed over 50 back-to-back launches, with their device time alone
+     sha256, sha256_ext3, eval_ext3, deep_ext3 and ood_sums_ext3 kernels
+     (and the strided copy the transpose is held against) are timed over
+     50 back-to-back launches, with their device time alone
      (torch.profiler) and the host time of one call beside it.  The plain
      RPO permutation is some 16,000 elementwise launches, so at the fib
      path's shapes it is compared on a 2^18-state sample of the same
@@ -94,14 +97,16 @@ FIB, BF = "fib_2e24", "bf_fibonacci_2e20"  # the SHA-256 paths' proves
 HELLO = "bf_hello_world"  # bench.py's latency line
 FIB_RPO, BF_RPO = "fib_rpo_2e24", "bf_hello_world_rpo"  # the RPO paths'
 LDE = "lde_2e29"
-FIB_PATH = ("inv", "ntt", "transpose", "sha256", "eval", "deep",
+FIB_PATH = ("inv", "ntt", "transpose", "sha256", "eval", "deep", "ood_sums",
             "sha256_grind", "sha256_tree")
 BF_PATH = ("inv", "ntt", "transpose", "sha256", "inv_ext3", "sha256_ext3",
-           "eval_ext3", "deep_ext3", "sha256_grind", "sha256_tree")
-FIB_RPO_PATH = ("inv", "ntt", "transpose", "eval", "deep", "rpo256",
-                "rpo256_grind", "rpo256_tree")
+           "eval_ext3", "deep_ext3", "ood_sums_ext3", "sha256_grind",
+           "sha256_tree")
+FIB_RPO_PATH = ("inv", "ntt", "transpose", "eval", "deep", "ood_sums",
+                "rpo256", "rpo256_grind", "rpo256_tree")
 BF_RPO_PATH = ("inv", "ntt", "transpose", "inv_ext3", "eval_ext3",
-               "deep_ext3", "rpo256", "rpo256_grind", "rpo256_tree")
+               "deep_ext3", "ood_sums_ext3", "rpo256", "rpo256_grind",
+               "rpo256_tree")
 LDE_PATH = ("ntt", "transpose", "ntt_stage")
 RPO_SAMPLE = 1 << 18  # states the plain RPO permutation is compared on
 SHA_SAMPLE = 1 << 18  # leaves and nonces the plain SHA-256 is compared on
@@ -252,15 +257,25 @@ def max_abs_err(torch, a, b) -> float:
 def eval_ops_per_point(keval, plan) -> int:
     """32-bit integer operations per CE point of the generated evaluator:
     its DAG walked group by group with the same structural sharing, each
-    operation costed by its operands' kinds (Fp or Fq3)."""
+    operation costed by its operands' kinds (Fp or Fq3).  A power of X
+    from the shared prologue costs nothing where a term reads it; the
+    prologue's products count once a point (log2 N squarings of the chain,
+    each with the running product where one is kept, then the short
+    chains), where a count of the plain square-and-multiply would take
+    bit_length + popcount products for every Pow in each group."""
     count = [0]
 
     def leaf_fn(leaf):
         if isinstance(leaf, keval._InvInput):
             return plan.inv_kind[leaf.key]
+        if isinstance(leaf, keval.X):
+            return "x"
         return keval.leaf_kind(leaf, plan.num_base, plan.fq_is_ext)
 
     def op_fn(op, a, b, exp):
+        if op == "pow" and a == "x" and exp in plan.power_of:
+            return "fp"
+        a, b = ("fp" if k == "x" else k for k in (a, b))
         fq = "fq" in (a, b)
         if op == "neg":
             count[0] += OPS_ADD * (3 if a == "fq" else 1)
@@ -282,7 +297,36 @@ def eval_ops_per_point(keval, plan) -> int:
         acc = "fq" if plan.fq_is_ext else "fp"
         for o in outs:
             op_fn("add", acc, o, None)
-    return count[0]
+    per_step, after = keval.power_products(plan)
+    steps = (plan.trace_len.bit_length() - 1) if per_step else 0
+    return count[0] + OPS_MUL * (per_step * steps + after)
+
+
+def deep_ops_per_point(kinds, points, ext) -> int:
+    """32-bit integer operations per LDE point of the DEEP sum at its least
+    work: alpha_t T_t[i] and a sum a term (kinds: 0 for an Fp column, 1 for
+    an Fq3 one), (C_g - that sum) inv_g[i] and a sum a distinct inverse
+    row (`points` of them), then times (A + B x), where the sum as written
+    takes two products a term (by the inverse and by alpha)."""
+    if not ext:
+        return (len(kinds) * (OPS_MUL + OPS_ADD)
+                + points * (OPS_MUL + 2 * OPS_ADD) + 2 * OPS_MUL + OPS_ADD)
+    terms = sum(OPS_MUL3 + 3 * OPS_ADD if k else 3 * OPS_MUL + 3 * OPS_ADD
+                for k in kinds)
+    return (terms + points * (OPS_MUL3 + 6 * OPS_ADD) + 3 * OPS_MUL
+            + 3 * OPS_ADD + OPS_MUL3)
+
+
+def ood_ops_per_point(kinds, points, ext) -> int:
+    """32-bit integer operations per LDE point of the OOD sums at their
+    least work: the weights inv_j[i] g^i once a point j, then a product
+    and a sum a (point, column) pair (kinds: 0 for an Fp column, 1 for an
+    Fq3 one)."""
+    if not ext:
+        return points * OPS_MUL + len(kinds) * (OPS_MUL + OPS_ADD)
+    return points * 3 * OPS_MUL + sum(
+        OPS_MUL3 + 3 * OPS_ADD if k else 3 * OPS_MUL + 3 * OPS_ADD
+        for k in kinds)
 
 
 class Checker:
@@ -483,7 +527,7 @@ def compare_fib_kernels(ck: Checker, fib_air_big, path, names):
         del m, left, right
 
     # E: the fib AIR's generated evaluator over the CE domain
-    plan, sources, _denoms = teval._plan_for(fib_air_big)
+    plan, source, _denoms = teval._plan_for(fib_air_big)
     cb = fib_air_big.ce_blowup_factor
     args = [rand(cols, ce_n), torch.zeros((0, 3, ce_n), dtype=torch.int64,
                                           device=dev),
@@ -493,7 +537,7 @@ def compare_fib_kernels(ck: Checker, fib_air_big, path, names):
             torch.zeros((0, 3, ce_n), dtype=torch.int64, device=dev),
             ck.scalar_table(plan)]
     ck.check("eval", path,
-             part(lambda: keval.eval_terms(plan, sources, cb, *args),
+             part(lambda: keval.eval_terms(plan, source, cb, *args),
                   lambda: keval.eval_terms_plain(plan, cb, *args)),
              8 * ce_n * (cols + 1 + len(plan.inv_keys) + 1),
              ce_n * eval_ops_per_point(keval, plan))
@@ -503,14 +547,29 @@ def compare_fib_kernels(ck: Checker, fib_air_big, path, names):
     # distinct OOD points) and per composition column (a third)
     T = len(fib_air_big.trace_arguments()) + cb
     dcols = [rand(lde_n) for _ in range(T)]
-    dinvs = [rand(lde_n) for _ in range(3)]
-    rows = [dinvs[t % 2 if t < T - cb else 2] for t in range(T)]
+    dinvs = rand(3, lde_n)
+    inv_rows = list(dinvs)
+    rows = [inv_rows[t % 2 if t < T - cb else 2] for t in range(T)]
     ds = rand(2 * T + 2)
     xl = lde.elements(dev)
     ck.check("deep", path, part(lambda: kdeep.deep(dcols, rows, ds, xl),
                                 lambda: kdeep.deep_plain(dcols, rows, ds, xl)),
              8 * lde_n * (T + 3 + 2),
-             lde_n * (T * (2 * OPS_MUL + 2 * OPS_ADD) + 2 * OPS_MUL + OPS_ADD))
+             lde_n * deep_ops_per_point([0] * T, 3, False))
+    del dcols
+
+    # F (OOD sums): the prove's pairs, each base column at the two trace
+    # points, the composition column at z^m
+    ocols = [rand(lde_n) for _ in range(cols + cb)]
+    pairs = [(j, c) for c in range(cols) for j in (0, 1)]
+    pairs += [(2, cols + k) for k in range(cb)]
+    gpow = powers(lde.group_gen, lde_n, dev)
+    ck.check("ood_sums", path,
+             part(lambda: kdeep.ood_sums(ocols, dinvs, pairs, gpow),
+                  lambda: kdeep.ood_sums_plain(ocols, dinvs, pairs, gpow)),
+             8 * lde_n * (cols + cb + 3 + 1),
+             lde_n * ood_ops_per_point([0] * len(pairs), 3, False))
+    del ocols, dinvs
 
 
 def compare_bf_kernels(ck: Checker, bf_air_big, path, names):
@@ -542,7 +601,7 @@ def compare_bf_kernels(ck: Checker, bf_air_big, path, names):
     offsets = sorted({off for _c, off in args})
     npts = len(offsets) + 1  # distinct OOD points: one per offset, and z^m
     chunk = 1 << 20
-    plan, sources, _denoms = teval._plan_for(bf_air_big)
+    plan, source, _denoms = teval._plan_for(bf_air_big)
     n_fp = sum(1 for k in plan.inv_keys if plan.inv_kind[k] == "fp")
 
     # A: the constraint evaluation's Fp denominators over the CE domain
@@ -667,38 +726,56 @@ def compare_bf_kernels(ck: Checker, bf_air_big, path, names):
     planes = nb + 3 * ne + 1 + len(plan.periodic) + n_fp + 3 * (
         len(plan.inv_keys) - n_fp)
     ck.check("eval_ext3", path,
-             part(lambda: keval.eval_terms(plan, sources, cb, *eargs),
+             part(lambda: keval.eval_terms(plan, source, cb, *eargs),
                   lambda: torch.cat([
                       keval.eval_terms_plain(
                           plan, cb, *eargs,
                           points=(i, min(i + chunk // 2, ce_n)))
                       for i in range(0, ce_n, chunk // 2)], dim=-1)),
              8 * ce_n * (planes + 3), ce_n * eval_ops_per_point(keval, plan),
-             plain_reps=1)
+             reps=50 if small else 3, plain_reps=1, launch_cost=small)
     del eargs
 
     # F (Fq3): the DEEP sum, one term per trace argument (base and
     # extension columns) and per composition column, times (A + B x)
     base, ext, comp = rand(nb, n), rand(ne, 3, n), rand(ncomp, 3, n)
     invs = rand(npts, 3, n)
+    # one view a column and a point, as composer.py gives them
+    views = [base[c] for c in range(nb)] + [ext[e] for e in range(ne)]
+    inv_rows = list(invs)
     cols, rows = [], []
     for col, off in args:
-        cols.append(base[col] if col < nb else ext[col - nb])
-        rows.append(invs[offsets.index(off)])
+        cols.append(views[col])
+        rows.append(inv_rows[offsets.index(off)])
     cols += [comp[k] for k in range(ncomp)]
-    rows += [invs[-1]] * ncomp
+    rows += [inv_rows[-1]] * ncomp
     T = len(cols)
     ds = rand(6 * T + 6)
     xl = bf_air_big.lde_domain().elements(dev)
-    n_fp_terms = sum(1 for c in cols if c.ndim == 1)
-    term_ops = (2 * OPS_MUL3 + 4 * OPS_ADD) * n_fp_terms + (
-        2 * OPS_MUL3 + 6 * OPS_ADD) * (T - n_fp_terms)
+    kinds = [int(c.ndim == 2) for c in cols]
     ck.check("deep_ext3", path,
              part(lambda: kdeep.deep_ext3(cols, rows, ds, xl),
                   lambda: kdeep.deep_ext3_plain(cols, rows, ds, xl)),
              8 * n * (nb + 3 * ne + 3 * ncomp + 3 * npts + 1 + 3),
-             n * (term_ops + 3 * OPS_MUL + 3 * OPS_ADD + OPS_MUL3),
-             plain_reps=1)
+             n * deep_ops_per_point(kinds, npts, True),
+             reps=50 if small else 3, plain_reps=1, launch_cost=small)
+
+    # F (OOD sums, Fq3): the prove's pairs, every trace argument's column
+    # at its point and the composition columns at z^m, on the same columns
+    # and inverse rows
+    ocols = views + [comp[k] for k in range(ncomp)]
+    pairs = sorted({(offsets.index(off), col) for col, off in args},
+                   key=lambda jc: (jc[1], jc[0]))
+    pairs += [(npts - 1, nb + ne + k) for k in range(ncomp)]
+    gpow = powers(lde.group_gen, n, dev)
+    ck.check("ood_sums_ext3", path,
+             part(lambda: kdeep.ood_sums_ext3(ocols, invs, pairs, gpow),
+                  lambda: kdeep.ood_sums_ext3_plain(ocols, invs, pairs,
+                                                    gpow)),
+             8 * n * (nb + 3 * ne + 3 * ncomp + 3 * npts + 1),
+             n * ood_ops_per_point([int(ocols[c].ndim == 2)
+                                    for _j, c in pairs], npts, True),
+             reps=50 if small else 3, plain_reps=1, launch_cost=small)
 
 
 def rpo_part(ck, make_input, hash_fn, plain_fn, sample=True):
@@ -1245,8 +1322,9 @@ def main() -> int:
                                   fri_max_remainder_coeffs=16)
 
     # -- phase 2: build ------------------------------------------------------
-    # The generated sources do not depend on the trace length (Pow
-    # exponents sit in the scalar table), so one AIR of each kind suffices.
+    # The generated sources do not depend on the trace length (the trace
+    # length and any other Pow exponent sit in the scalar table), so one
+    # AIR of each kind suffices.
     t0 = time.perf_counter()
     fib_air_big = Air(FibAirConfig, 1 << 21, Fp(0), ProofOptions(*FIB_OPTS))
     bf_air_big = Air(BrainfuckAirConfig, 1 << 20,
@@ -1256,10 +1334,8 @@ def main() -> int:
         if k.source:
             by_file.setdefault(k.source, k)
     jobs = [(k, None) for k in by_file.values()]
-    jobs += [(build.KERNELS["eval"], s)
-             for s in teval._plan_for(fib_air_big)[1]]
-    jobs += [(build.KERNELS["eval_ext3"], s)
-             for s in teval._plan_for(bf_air_big)[1]]
+    jobs += [(build.KERNELS["eval"], teval._plan_for(fib_air_big)[1]),
+             (build.KERNELS["eval_ext3"], teval._plan_for(bf_air_big)[1])]
     with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
         list(ex.map(lambda j: j[0].build(j[1]), jobs))
     print(f"build: {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s",

@@ -4,11 +4,11 @@ src/composer.rs; mirrors ``ministark_tpu.composer``), for Fp transcripts
 
 * OOD evaluations by barycentric interpolation over the LDE coset
   {o*g^i, i<N}:   P(y) = (y^N - o^N)/(N*o^(N-1)) * sum_i e_i*g^i/(y - x_i)
-  -> one batched inversion of (y - x_i) for the distinct OOD points
-  (kernel A, in Fp or Fq3), shared by every column; per column a multiply
-  and a field sum (plain PyTorch, where the JAX package ran one XLA
-  program).  Columns go through the sums a few at a time, so no product
-  of the whole trace with the weights is ever held.
+  -> one batched inversion of (y - x_i) for all the distinct OOD points
+  (kernel A, in Fp or Fq3), shared by every column; the sums of every
+  (point, column) pair the transcript needs in one call of kernel F's
+  OOD entry point (where the JAX package ran one XLA program), which reads
+  each column once and holds no product of a column with the weights.
 * The DEEP LDE assembled pointwise by the verifier's quotient formula:
       deep(x_i) = [ sum_t a_t*(ood_t - T_t(x_i)) / (y_t - x_i) ] * (A + B*x_i)
   in one pass of kernel F.
@@ -24,9 +24,6 @@ from .fields import device as fd
 from .fields.scalar import Fp, Fq3, P
 from .ntt import powers
 from .ops import deep as kdeep
-
-# elements of the largest (columns, 3, n) product the OOD sums hold at once
-_OOD_CHUNK = 1 << 26
 
 
 class DeepCompositionCoeffs:
@@ -88,37 +85,6 @@ class DeepPolyComposer:
         return (y ** dom.size - Fp(dom.offset_pow_size())) / (
             Fp(dom.size) * Fp(pow(dom.offset, dom.size - 1, P)))
 
-    def get_ood_evals(self):
-        """(execution trace OOD evals, composition trace OOD evals)."""
-        if self.ext:
-            return self._ood_evals_ext3()
-        trace_pts = self._trace_points()
-        keys, vals = self._distinct_points()
-        dom = self.lde_dom
-        dev = self.base_lde.device
-        x = dom.elements(dev)
-        gpow = powers(dom.group_gen, dom.size, dev)
-        base = self.base_lde.values
-        comp = self.composition_lde.values
-
-        invs, sums = [], []
-        for j, y in enumerate(vals):
-            inv = fd.batch_inv(fd.sub(fd.full(x.shape, y.v, dev), x))
-            invs.append(inv)
-            w = fd.mul(inv, gpow)
-            cols = comp if j == len(vals) - 1 else base
-            sums.append(fd.to_ints(fd.sum_mod(fd.mul(cols, w), dim=-1)))
-        scales = [self._scale_of(y) for y in vals]
-
-        execution_oods = [
-            Fp(sums[keys.index(("t", off))][col])
-            * scales[keys.index(("t", off))]
-            for (col, off, _y) in trace_pts]
-        composition_oods = [Fp(v) * scales[-1] for v in sums[-1]]
-        self._cache = (trace_pts, keys, torch.stack(invs), execution_oods,
-                       composition_oods)
-        return execution_oods, composition_oods
-
     def _trace_column(self, col: int) -> torch.Tensor:
         """Trace column `col`: (n,) base or (3, n) extension values."""
         nb = self.base_lde.num_cols
@@ -126,52 +92,47 @@ class DeepPolyComposer:
             return self.base_lde.values[col]
         return self.extension_lde.values[col - nb]
 
-    def _weighted_sums(self, cols: list[int], w: torch.Tensor,
-                       column) -> list[Fq3]:
-        """sum_i column(c)[i] * w[i] in Fq3 for each c in `cols`, a few
-        columns at a time; w is (3, n), column(c) (n,) or (3, n)."""
-        step = max(1, _OOD_CHUNK // (3 * w.shape[-1]))
-        out = {}
-        base = [c for c in cols if column(c).ndim == 1]
-        ext = [c for c in cols if column(c).ndim == 2]
-        for group, times_w in ((base, lambda t: fd.ext3_mul_base(w, t)),
-                               (ext, lambda t: fd.ext3_mul(t, w))):
-            for k in range(0, len(group), step):
-                part = group[k:k + step]
-                t = torch.stack([column(c) for c in part])
-                s = fd.sum_mod(times_w(t), dim=-1)  # (len(part), 3)
-                out.update(zip(part, fd.ext3_to_scalars(s.T)))
-        return [out[c] for c in cols]
-
-    def _ood_evals_ext3(self):
+    def get_ood_evals(self):
+        """(execution trace OOD evals, composition trace OOD evals)."""
         trace_pts = self._trace_points()
         keys, vals = self._distinct_points()
         dom = self.lde_dom
         dev = self.base_lde.device
         x = dom.elements(dev)
         gpow = powers(dom.group_gen, dom.size, dev)
-        ys = fd.ext3_table(vals, dev).reshape(-1, 3, 1)
-        invs = fd.ext3_batch_inv(fd.sub(ys, fd.ext3_from_base(x)))
+        if self.ext:
+            ys = fd.ext3_table(vals, dev).reshape(-1, 3, 1)
+            invs = fd.ext3_batch_inv(fd.sub(ys, fd.ext3_from_base(x)))
+        else:
+            ys = torch.tensor([fd.to_i64(y.v) for y in vals],
+                              dtype=torch.int64, device=dev)
+            invs = fd.batch_inv(fd.sub(ys.reshape(-1, 1), x))
 
-        sums = {}
-        for j, key in enumerate(keys[:-1]):
-            cols = sorted({c for (c, off, _y) in trace_pts
-                           if ("t", off) == key})
-            w = fd.ext3_mul_base(invs[j], gpow)
-            for c, v in zip(cols, self._weighted_sums(
-                    cols, w, self._trace_column)):
-                sums[(j, c)] = v
+        # one pair (point, column) per trace argument's column at its
+        # point, then the composition columns at z^m
         ncomp = self.composition_lde.num_cols
-        w = fd.ext3_mul_base(invs[-1], gpow)
-        comp_sums = self._weighted_sums(
-            list(range(ncomp)), w, lambda k: self.composition_lde.values[k])
+        cols = [self._trace_column(c) for c in range(
+            self.base_lde.num_cols
+            + (self.extension_lde.num_cols if self.extension_lde else 0))]
+        cols += [self.composition_lde.values[k] for k in range(ncomp)]
+        pairs = sorted({(keys.index(("t", off)), col)
+                        for (col, off, _y) in trace_pts},
+                       key=lambda jc: (jc[1], jc[0]))
+        pairs += [(len(keys) - 1, len(cols) - ncomp + k) for k in range(ncomp)]
+        if self.ext:
+            sums = fd.ext3_to_scalars(kdeep.ood_sums_ext3(cols, invs, pairs,
+                                                          gpow))
+        else:
+            sums = [Fp(v) for v in fd.to_ints(kdeep.ood_sums(cols, invs, pairs,
+                                                              gpow))]
+        by_pair = dict(zip(pairs, sums))
         scales = [self._scale_of(y) for y in vals]
 
         execution_oods = []
         for (col, off, _y) in trace_pts:
             j = keys.index(("t", off))
-            execution_oods.append(sums[(j, col)] * scales[j])
-        composition_oods = [v * scales[-1] for v in comp_sums]
+            execution_oods.append(by_pair[(j, col)] * scales[j])
+        composition_oods = [v * scales[-1] for v in sums[len(sums) - ncomp:]]
         self._cache = (trace_pts, keys, invs, execution_oods,
                        composition_oods)
         return execution_oods, composition_oods
@@ -183,14 +144,18 @@ class DeepPolyComposer:
         trace_pts, keys, invs, exec_oods, comp_oods = self._cache
         comp = self.composition_lde.values
         dev = comp.device
+        # one view a column and a point, shared by their terms
+        rows, views = list(invs), {}
         cols, inv_rows, svals = [], [], []
         for j, (col, off, _y) in enumerate(trace_pts):
-            cols.append(self._trace_column(col))
-            inv_rows.append(invs[keys.index(("t", off))])
+            if col not in views:
+                views[col] = self._trace_column(col)
+            cols.append(views[col])
+            inv_rows.append(rows[keys.index(("t", off))])
             svals += [exec_oods[j], coeffs.execution_trace[j]]
         for k in range(comp.shape[0]):
             cols.append(comp[k])
-            inv_rows.append(invs[-1])
+            inv_rows.append(rows[-1])
             svals += [comp_oods[k], coeffs.composition_trace[k]]
         svals += [coeffs.degree[0], coeffs.degree[1]]
         x = self.lde_dom.elements(dev)

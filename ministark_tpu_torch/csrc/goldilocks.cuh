@@ -228,6 +228,24 @@ GL_HD gl3 gl3_mul(gl3 a, gl3 b) {
                     gl_add(t2, v1));
 }
 
+// gl3_mul and gl3_mul_base on the carry-chain product (gl_mul_cc)
+GL_HD gl3 gl3_mul_cc(gl3 a, gl3 b) {
+    const uint64_t v0 = gl_mul_cc(a.c0, b.c0), v1 = gl_mul_cc(a.c1, b.c1),
+                   v2 = gl_mul_cc(a.c2, b.c2);
+    const uint64_t t0 = gl_sub(
+        gl_sub(gl_mul_cc(gl_add(a.c1, a.c2), gl_add(b.c1, b.c2)), v1), v2);
+    const uint64_t t1 = gl_sub(
+        gl_sub(gl_mul_cc(gl_add(a.c0, a.c1), gl_add(b.c0, b.c1)), v0), v1);
+    const uint64_t t2 = gl_sub(
+        gl_sub(gl_mul_cc(gl_add(a.c0, a.c2), gl_add(b.c0, b.c2)), v0), v2);
+    return gl3_make(gl_add(v0, gl_add(t0, t0)), gl_add(t1, gl_add(v2, v2)),
+                    gl_add(t2, v1));
+}
+
+GL_HD gl3 gl3_mul_base_cc(gl3 a, uint64_t b) {
+    return gl3_make(gl_mul_cc(a.c0, b), gl_mul_cc(a.c1, b), gl_mul_cc(a.c2, b));
+}
+
 GL_HD gl3 gl3_pow(gl3 base, uint64_t e) {
     gl3 acc = gl3_from_base(1);
     while (e) {

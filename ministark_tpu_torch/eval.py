@@ -153,7 +153,7 @@ _PLAN_CACHE: dict = {}
 
 
 def _plan_for(air):
-    """(plan, generated sources, denominators) per AIR config and shape."""
+    """(plan, generated source, denominators) per AIR config and shape."""
     cfg = air.config if isinstance(air.config, type) else type(air.config)
     key = (cfg.__qualname__, air.trace_len, air.ce_blowup_factor)
     if key not in _PLAN_CACHE:
@@ -168,9 +168,9 @@ def _plan_for(air):
         inv_kind = {k: keval.expr_kind(d, nb, ext)
                     for k, d in denom_by_key.items()}
         plan = keval.build_plan(_top_sum_terms(expr), key_memo, nb, ext,
-                                inv_kind)
-        sources = keval.generate_sources(plan, air.ce_blowup_factor)
-        _PLAN_CACHE[key] = (plan, sources, denom_by_key)
+                                inv_kind, air.trace_len)
+        source = keval.generate_source(plan, air.ce_blowup_factor)
+        _PLAN_CACHE[key] = (plan, source, denom_by_key)
     return _PLAN_CACHE[key]
 
 
@@ -182,7 +182,7 @@ def eval_composition(air, composition_coeffs, challenges, hints, x, trace,
     base-trace values; ext: (next, 3, n) extension-trace values, or None.
     Returns the (n,) composition evaluations of an Fp AIR, (3, n) of an
     Fq3 one."""
-    plan, sources, denom_by_key = _plan_for(air)
+    plan, source, denom_by_key = _plan_for(air)
     n, dev = x.shape[0], x.device
     if ext is None:
         ext = torch.zeros((0, 3, n), dtype=torch.int64, device=dev)
@@ -203,5 +203,5 @@ def eval_composition(air, composition_coeffs, challenges, hints, x, trace,
                         for p in plan.periodic]) if plan.periodic
            else torch.zeros((0, n), dtype=torch.int64, device=dev))
     s = keval.scalar_table(plan, challenges, hints, composition_coeffs, dev)
-    return keval.eval_terms(plan, sources, air.ce_blowup_factor, trace, ext,
+    return keval.eval_terms(plan, source, air.ce_blowup_factor, trace, ext,
                             x, per, inv, inv3, s)

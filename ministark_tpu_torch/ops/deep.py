@@ -1,5 +1,7 @@
-"""Fused DEEP composition: wrappers for kernel F (csrc/deep.cu), in Fp and
-in Fq3, each beside its plain PyTorch version."""
+"""Kernel F (csrc/deep.cu, math in csrc/deep.cuh), in Fp and in Fq3, each
+entry point beside its plain PyTorch version: the DEEP sum over the LDE
+domain (``deep``, ``deep_ext3``) and the OOD barycentric sums
+(``ood_sums``, ``ood_sums_ext3``)."""
 
 from __future__ import annotations
 
@@ -14,6 +16,23 @@ KERNEL = build.register(
 KERNEL_EXT3 = build.register(
     "deep_ext3", "deep.cu",
     replaces="ministark_tpu/ops/deep_pallas.py:64 _group_kernel_ext")
+KERNEL_OOD = build.register(
+    "ood_sums", "deep.cu",
+    replaces="ministark_tpu/composer.py:76 _ood_program_impl (prog_fp, XLA)")
+KERNEL_OOD_EXT3 = build.register(
+    "ood_sums_ext3", "deep.cu",
+    replaces="ministark_tpu/composer.py:76 _ood_program_impl (prog_ext, XLA)")
+
+# The OOD kernels' groups (csrc/deep.cuh): at most OOD_W points and
+# OOD_PAIRS[ext] (point, column) pairs each
+OOD_W = 2
+OOD_PAIRS = {False: 8, True: 4}
+# points a block of the OOD kernel takes at least, and the blocks aimed at
+OOD_CHUNK_MIN = 512
+OOD_BLOCKS = 132 * 16
+# columns the plain OOD sums multiply by the weights at once, as
+# (columns, 3, n) elements: bounds the plain version's temporaries
+PLAIN_OOD_ELEMS = 1 << 26
 
 
 def deep_plain(cols, invs, s, x):
@@ -24,43 +43,6 @@ def deep_plain(cols, invs, s, x):
         d = fd.sub(torch.full_like(x, sv[2 * t]), cols[t])
         acc = fd.add(acc, fd.mul(fd.mul(d, invs[t]), s[2 * t + 1]))
     return fd.mul(acc, fd.add(fd.mul(x, s[2 * T + 1]), s[2 * T]))
-
-
-def _check_terms(cols, invs, x, ext: bool):
-    n = x.shape[0]
-    build.check_cuda(x, name="x")
-    col_ok = ((n,), (3, n)) if ext else ((n,),)
-    inv_ok = ((3, n),) if ext else ((n,),)
-    for name, ts, ok in (("col", cols, col_ok), ("inv", invs, inv_ok)):
-        for t in ts:
-            build.check_cuda(t, name=name)
-            if tuple(t.shape) not in ok:
-                raise ValueError(f"deep: {name} of shape {tuple(t.shape)} "
-                                 f"is not one of {ok}")
-
-
-def _pointer_table(tensors, device):
-    return torch.tensor([t.data_ptr() for t in tensors],
-                        dtype=torch.int64).to(device)
-
-
-def deep(cols: list, invs: list, s: torch.Tensor, x: torch.Tensor):
-    """sum_t alpha_t * (ood_t - cols[t]) * invs[t], times (A + B * x).
-    cols/invs: T (n,) int64 vectors; s: [ood_0, alpha_0, ..., A, B].
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
-    if not x.is_cuda:
-        return deep_plain(cols, invs, s, x)
-    T, n = len(cols), x.shape[0]
-    if len(invs) != T or s.shape != (2 * T + 2,):
-        raise ValueError("deep: need one inverse row and two scalars per term")
-    build.check_cuda(s, name="s")
-    _check_terms(cols, invs, x, False)
-    ptrs = _pointer_table(list(cols) + list(invs), x.device)
-    out = torch.empty_like(x)
-    KERNEL.launch("ms_deep", build.ptr(ptrs), build.ptr(ptrs[T:]),
-                  build.ptr(s), build.ptr(x), build.ptr(out), build.i64(n),
-                  build.i64(T))
-    return out
 
 
 def deep_ext3_plain(cols, invs, s, x):
@@ -76,25 +58,265 @@ def deep_ext3_plain(cols, invs, s, x):
     return fd.ext3_mul(acc, adj)
 
 
-def deep_ext3(cols: list, invs: list, s: torch.Tensor, x: torch.Tensor):
+def deep_lanes(ext: bool) -> int:
+    """Threads that share a point of the DEEP sum.  Timed in turns on an
+    H100 at 1, 2, 4 and 8 lanes (scripts/ab_kernels.py): two run fastest
+    for Fq3 transcripts at 2^15 and 2^24 points, one for Fp at 2^23 (where
+    the sum is memory-bound)."""
+    return 2 if ext else 1
+
+
+def _pointers(tensors) -> list:
+    """data_ptr() of each tensor, asked once a tensor object (terms share
+    their rows and columns, and data_ptr() costs a microsecond)."""
+    seen: dict = {}
+    out = []
+    for t in tensors:
+        p = seen.get(id(t))
+        if p is None:
+            p = seen[id(t)] = t.data_ptr()
+        out.append(p)
+    return out
+
+
+def deep_plan(cols, invs, lanes: int) -> tuple[list, int]:
+    """The DEEP kernel's plan (csrc/deep.cuh): the terms grouped by their
+    inverse row (the same tensor storage), each group cut into segments of
+    one column kind, and, with lanes > 1, of at most T / (2 lanes) terms.
+    Returns (int64 words, number of segments)."""
+    T = len(cols)
+    col_ptrs, row_ptrs = _pointers(cols), _pointers(invs)
+    groups: dict = {}
+    for t, ptr in enumerate(row_ptrs):
+        groups.setdefault(ptr, ([], []))[int(cols[t].ndim == 2)].append(t)
+    longest = max(1, -(-T // (2 * lanes))) if lanes > 1 else max(T, 1)
+    order, starts, kinds, rows = [], [0], [], []
+    for ptr, by_kind in groups.items():
+        for kind, same in enumerate(by_kind):
+            for k in range(0, len(same), longest):
+                order += same[k:k + longest]
+                starts.append(len(order))
+                kinds.append(kind)
+                rows.append(ptr)
+    words = ([T, len(kinds)] + [col_ptrs[t] for t in order] + order
+             + starts + kinds + rows)
+    return words, len(kinds)
+
+
+def _check_inputs(what, ts, ok):
+    """check_cuda and the shape (one of `ok`) of each tensor object of `ts`
+    once (terms share their rows and columns)."""
+    for t in {id(t): t for t in ts}.values():
+        build.check_cuda(t, name=what)
+        if tuple(t.shape) not in ok:
+            raise ValueError(f"{what} of shape {tuple(t.shape)} is not one "
+                             f"of {ok}")
+
+
+def _check_terms(cols, invs, x, ext: bool):
+    n = x.shape[0]
+    build.check_cuda(x, name="x")
+    _check_inputs("deep: col", cols, ((n,), (3, n)) if ext else ((n,),))
+    _check_inputs("deep: inv", invs, ((3, n),) if ext else ((n,),))
+
+
+def _int64_table(words, device) -> torch.Tensor:
+    """`words` on the card, copied from pinned memory without waiting for
+    the card (a copy from pageable memory would wait for the stream)."""
+    return torch.tensor(words, dtype=torch.int64,
+                        pin_memory=True).to(device, non_blocking=True)
+
+
+def _launch_deep(kernel, fn, cols, invs, s, x, out, lanes, ext):
+    n = x.shape[0]
+    lanes = lanes or deep_lanes(ext)
+    words, nseg = deep_plan(cols, invs, lanes)
+    plan = _int64_table(words, x.device)
+    kernel.launch(fn, build.ptr(plan), build.i64(len(cols)), build.i64(nseg),
+                  build.ptr(s), build.ptr(x), build.ptr(out), build.i64(n),
+                  build.c_int(lanes))
+    return out
+
+
+def deep(cols: list, invs: list, s: torch.Tensor, x: torch.Tensor,
+         lanes: int | None = None):
+    """sum_t alpha_t * (ood_t - cols[t]) * invs[t], times (A + B * x).
+    cols/invs: T (n,) int64 vectors; s: [ood_0, alpha_0, ..., A, B].
+    CUDA tensors launch the kernel (`lanes` threads a point, by default
+    ``deep_lanes``); CPU tensors take the plain version."""
+    if not x.is_cuda:
+        return deep_plain(cols, invs, s, x)
+    T = len(cols)
+    if len(invs) != T or s.shape != (2 * T + 2,):
+        raise ValueError("deep: need one inverse row and two scalars per term")
+    build.check_cuda(s, name="s")
+    _check_terms(cols, invs, x, False)
+    return _launch_deep(KERNEL, "ms_deep", cols, invs, s, x,
+                        torch.empty_like(x), lanes, False)
+
+
+def deep_ext3(cols: list, invs: list, s: torch.Tensor, x: torch.Tensor,
+              lanes: int | None = None):
     """The DEEP sum over an Fq3 transcript, times (A + B * x), as a (3, n)
     tensor.  cols: T columns, each (n,) in Fp or (3, n) in Fq3; invs: T
     (3, n) inverse rows; s: 3 slots per Fq3 scalar, [ood_0, alpha_0, ...,
-    A, B]; x: (n,).  CUDA tensors launch the kernel; CPU tensors take the
-    plain version."""
+    A, B]; x: (n,).  CUDA tensors launch the kernel (`lanes` as in
+    ``deep``); CPU tensors take the plain version."""
     if not x.is_cuda:
         return deep_ext3_plain(cols, invs, s, x)
-    T, n = len(cols), x.shape[0]
+    T = len(cols)
     if len(invs) != T or s.shape != (6 * T + 6,):
         raise ValueError("deep_ext3: need one inverse row and two Fq3 "
                          "scalars per term")
     build.check_cuda(s, name="s")
     _check_terms(cols, invs, x, True)
-    ptrs = _pointer_table(list(cols) + list(invs), x.device)
-    kinds = torch.tensor([int(c.ndim == 2) for c in cols],
-                         dtype=torch.int64).to(x.device)
-    out = torch.empty((3, n), dtype=torch.int64, device=x.device)
-    KERNEL_EXT3.launch("ms_deep_ext3", build.ptr(ptrs), build.ptr(kinds),
-                       build.ptr(ptrs[T:]), build.ptr(s), build.ptr(x),
-                       build.ptr(out), build.i64(n), build.i64(T))
-    return out
+    out = torch.empty((3, x.shape[0]), dtype=torch.int64, device=x.device)
+    return _launch_deep(KERNEL_EXT3, "ms_deep_ext3", cols, invs, s, x, out,
+                        lanes, True)
+
+
+# -- the OOD barycentric sums --------------------------------------------------
+
+
+def _plain_sums(cols, invs, pairs, gpow, ext: bool):
+    """sum_i cols[c][i] * invs[j][i] * gpow[i] for each pair (j, c), a few
+    columns at a time: point by point, its columns' products with the
+    weights w = invs[j] * gpow, summed by ``fd.sum_mod``."""
+    n = gpow.shape[-1]
+    step = max(1, PLAIN_OOD_ELEMS // (3 * n))
+    out: dict = {}
+    if not pairs:
+        return torch.zeros((3, 0) if ext else (0,), dtype=torch.int64,
+                           device=gpow.device)
+    for j in sorted({j for j, _c in pairs}):
+        w = (fd.ext3_mul_base(invs[j], gpow) if ext
+             else fd.mul(invs[j], gpow))
+        ks = [k for k, (jj, _c) in enumerate(pairs) if jj == j]
+        base = [k for k in ks if cols[pairs[k][1]].ndim == 1]
+        wide = [k for k in ks if cols[pairs[k][1]].ndim == 2]
+        for group, times_w in ((base, (lambda t: fd.ext3_mul_base(w, t))
+                                if ext else (lambda t: fd.mul(t, w))),
+                               (wide, lambda t: fd.ext3_mul(t, w))):
+            for a in range(0, len(group), step):
+                part = group[a:a + step]
+                t = torch.stack([cols[pairs[k][1]] for k in part])
+                out.update(zip(part, fd.sum_mod(times_w(t), dim=-1)))
+    return torch.stack([out[k] for k in range(len(pairs))], dim=-1)
+
+
+def ood_sums_plain(cols, invs, pairs, gpow):
+    return _plain_sums(cols, invs, pairs, gpow, False)
+
+
+def ood_sums_ext3_plain(cols, invs, pairs, gpow):
+    return _plain_sums(cols, invs, pairs, gpow, True)
+
+
+def ood_record_words(ext: bool, P: int | None = None) -> int:
+    """int64 words of one OOD group's record (csrc/deep.cuh OOD_RECORD), of
+    P (by default OOD_PAIRS[ext]) pairs."""
+    return 3 + OOD_W + 3 * (P or OOD_PAIRS[ext])
+
+
+def ood_groups(cols, invs, pairs, ext: bool, P: int | None = None) -> list:
+    """The OOD kernel's groups (csrc/deep.cuh), one record each, flattened:
+    a column's pairs go to one group where they fit (columns of one kind a
+    group, at most OOD_W points and OOD_PAIRS[ext] pairs), in the order of
+    the columns' first pairs; a pair that reads the column of the pair
+    before it is marked so that the column is loaded once a point.  P: the
+    kernel's pairs a group, by default OOD_PAIRS[ext]."""
+    P = P or OOD_PAIRS[ext]
+    col_ptrs = {c: cols[c].data_ptr() for c in {c for _j, c in pairs}}
+    row_ptrs = {j: invs[j].data_ptr() for j in {j for j, _c in pairs}}
+    by_col: dict = {}
+    for k, (j, c) in enumerate(pairs):
+        by_col.setdefault(c, []).append((k, j))
+    records, cur = [], []
+
+    def flush():
+        if not cur:
+            return
+        pts = list(dict.fromkeys(j for _k, j, _c, _r in cur))
+        pad = [0] * (P - len(cur))
+        records.extend(
+            [len(cur), len(pts), int(cols[cur[0][2]].ndim == 2)]
+            + [row_ptrs[j] for j in pts] + [0] * (OOD_W - len(pts))
+            + [col_ptrs[c] for _k, _j, c, _r in cur] + pad
+            + [pts.index(j) | r << 1 for _k, j, _c, r in cur] + pad
+            + [k for k, _j, _c, _r in cur] + pad)
+        cur.clear()
+
+    for c, kjs in by_col.items():
+        pts = {j for _k, j, _c, _r in cur}
+        if cur and (len(cur) + len(kjs) > P
+                    or len(pts | {j for _k, j in kjs}) > OOD_W
+                    or cols[cur[0][2]].ndim != cols[c].ndim):
+            flush()
+        first = True
+        for k, j in kjs:  # a column of more pairs or points than a group
+            if len(cur) == P or len({jj for _k, jj, _c, _r in cur} | {j}) \
+                    > OOD_W:
+                flush()
+                first = True
+            cur.append((k, j, c, 0 if first else 1))
+            first = False
+    flush()
+    return records
+
+
+def _ood(kernel, fn, cols, invs, pairs, gpow, ext: bool):
+    n = gpow.shape[0]
+    build.check_cuda(gpow, name="gpow")
+    build.check_cuda(invs, name="invs")
+    if invs.shape[1:] != ((3, n) if ext else (n,)) or invs.shape[0] > 65535:
+        raise ValueError(f"ood_sums: inverse rows of shape "
+                         f"{tuple(invs.shape)} for {n} points")
+    if any(not 0 <= j < invs.shape[0] for j, _c in pairs):
+        raise ValueError("ood_sums: a pair of no inverse row")
+    _check_inputs("ood_sums: col", [cols[c] for _j, c in pairs],
+                  ((n,), (3, n)) if ext else ((n,),))
+    slots = 3 if ext else 1
+    out = torch.empty(slots * len(pairs), dtype=torch.int64,
+                      device=gpow.device)
+    if pairs:
+        words = ood_groups(cols, invs, pairs, ext)
+        groups = len(words) // ood_record_words(ext)
+        chunks = ood_chunks(n, groups)
+        recs = _int64_table(words, gpow.device)
+        partial = torch.empty(chunks * slots * len(pairs), dtype=torch.int64,
+                              device=gpow.device)
+        kernel.launch(fn, build.ptr(recs), build.i64(groups),
+                      build.ptr(gpow), build.ptr(partial), build.ptr(out),
+                      build.i64(n), build.i64(chunks), build.i64(len(pairs)))
+    return out.reshape(3, -1) if ext else out
+
+
+def ood_chunks(n: int, groups: int) -> int:
+    """Blocks a group's points are cut into: about OOD_BLOCKS blocks in all,
+    none shorter than OOD_CHUNK_MIN points."""
+    aim = -(-OOD_BLOCKS // max(groups, 1))
+    return max(1, min(aim, -(-n // OOD_CHUNK_MIN), 65535))
+
+
+def ood_sums(cols: list, invs: torch.Tensor, pairs: list,
+             gpow: torch.Tensor) -> torch.Tensor:
+    """S[k] = sum_i cols[c][i] * invs[j][i] * gpow[i] for each pair k =
+    (j, c), in Fp: cols (n,) vectors, invs (npts, n), gpow (n,) the powers
+    g^i of the LDE group; returns (len(pairs),).  CUDA tensors launch the
+    kernel (two launches: the groups' partial sums, then their sum); CPU
+    tensors take the plain version."""
+    if not gpow.is_cuda:
+        return ood_sums_plain(cols, invs, pairs, gpow)
+    return _ood(KERNEL_OOD, "ms_ood_sums", cols, invs, pairs, gpow, False)
+
+
+def ood_sums_ext3(cols: list, invs: torch.Tensor, pairs: list,
+                  gpow: torch.Tensor) -> torch.Tensor:
+    """The OOD sums of an Fq3 transcript: cols (n,) Fp or (3, n) Fq3
+    columns, invs (npts, 3, n) Fq3 inverse rows, gpow (n,); returns (3,
+    len(pairs)).  CUDA tensors launch the kernel; CPU tensors take the
+    plain version."""
+    if not gpow.is_cuda:
+        return ood_sums_ext3_plain(cols, invs, pairs, gpow)
+    return _ood(KERNEL_OOD_EXT3, "ms_ood_sums_ext3", cols, invs, pairs, gpow,
+                True)

@@ -19,25 +19,35 @@ coefficients are Fq3 scalars; X, periodic columns and base columns are Fp;
 an inverse input has its denominator's kind; an operation is Fq3 iff one
 operand is, and the Fp operand is promoted only there.
 
-``generate_sources`` emits one translation unit per group of terms: a
-``GL_HD`` per-point function of straight-line ``goldilocks.cuh`` code
-(every structurally distinct node of the group once), a CUDA kernel that
-runs it with one thread per CE point and adds its sum into the output, and
-a host loop that g++ builds for the CPU tests.  An Fp AIR's terms form one
-group; an Fq3 AIR's terms go GROUP_SIZE to a kernel, as on the TPU, which
-bounds each kernel's registers and nvcc's time on its source.
+``generate_source`` emits one translation unit for the whole sum.  The
+terms go GROUP_SIZE to a group (an Fp AIR's all in one), each group a
+``GL_HD`` function of straight-line ``goldilocks.cuh`` code (every
+structurally distinct node of the group once) and a kernel instantiation
+of its own, so that each group's registers are its own.  From GROUPS_FROM
+CE points a launch a group adds into the output; below, one launch runs
+every group (a grid row a group) into parts that a second launch sums.  A
+host loop lets g++ build the same code for the CPU tests.
+
+Powers of X.  The degree adjustments x^e grow with the trace length N:
+at N = 2^20 brainfuck's are e = a N + b with a < 16 and b < 12, or b =
+N - 1.  One chain of log2 N squarings gives y = x^N (and, where some b =
+N - 1, the running product r = x^(N - 1)): before the launches a group, a
+pass of its own computes it once a point; in the one launch each group
+computes it (at 2^15 points that ran faster than a third launch).  Each
+group then takes its powers as y^a x^b (or y^a r) by short chains with a
+and b in the source; N itself sits in the scalar table, so one compiled
+kernel serves every trace length.  Any other power keeps a runtime
+exponent from the table (``gl_pow``).
 
 Bound on the card: integer operations for both AIRs (chip_smoke.py's
-model: ~1.7k 32-bit instructions per point for fib against ~100 bytes,
-~36k for brainfuck against ~400 bytes, most of them in the x^k degree
-adjustments).  Design: a group's terms in one kernel, every
-input read once per point by that group, no intermediate leaves the
-registers; the groups add into one output in device memory.
+model, which counts the powers of X once a point).  Design: every input
+read once per point by each group that uses it, no intermediate leaves
+the registers.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -62,7 +72,9 @@ KERNEL_EXT3 = build.register(
     "eval_ext3", None,
     replaces="ministark_tpu/ops/eval_pallas.py:151 _kernel_factory (Fq3)")
 
-GROUP_SIZE = 6  # Fq3 terms per generated kernel (eval_pallas.py:47)
+GROUP_SIZE = 6  # Fq3 terms a group (eval_pallas.py:47)
+# CE points from which kernel E runs a launch a group (see eval_launch)
+GROUPS_FROM = 1 << 20
 
 
 @dataclass(frozen=True)
@@ -137,12 +149,32 @@ class Plan:
                            #  v, kind)
     slot: dict             # leaf key -> index into its input list / scalar table
     num_slots: int         # scalar-table length (3 slots per Fq3 scalar)
+    trace_len: int | None = None
+    powers: list = field(default_factory=list)  # shared powers of X, by key
+    power_of: dict = field(default_factory=dict)  # exponent -> its key
+
+
+SMALL_POW = 32  # a and b of a shared power x^(a N + b) stay below this
+
+
+def power_key(e: int, trace_len: int):
+    """The shared-prologue key of x^e at trace length N: ("nm1", a) for e =
+    a N + N - 1, ("small", a, b) for e = a N + b with a, b < SMALL_POW;
+    None for a power left to a runtime exponent."""
+    a, b = divmod(e, trace_len)
+    if a >= SMALL_POW:
+        return None
+    if b == trace_len - 1:
+        return ("nm1", a)
+    return ("small", a, b) if b < SMALL_POW else None
 
 
 def build_plan(terms, key_memo, num_base: int, fq_is_ext: bool = False,
-               inv_kind: dict | None = None) -> Plan:
+               inv_kind: dict | None = None,
+               trace_len: int | None = None) -> Plan:
     """Assign every leaf to an input vector or a scalar-table slot.  Fp and
-    Fq3 inverse inputs are numbered apart (two input stacks)."""
+    Fq3 inverse inputs are numbered apart (two input stacks).  With the
+    trace length, powers of X go to the shared prologue (``power_key``)."""
     rewritten = [_rewrite_divs(t, key_memo) for t in terms]
     step = GROUP_SIZE if fq_is_ext else max(len(rewritten), 1)
     groups = [(g, min(g + step, len(rewritten)))
@@ -185,14 +217,31 @@ def build_plan(terms, key_memo, num_base: int, fq_is_ext: bool = False,
                 plan.scalars.append(entry)
                 plan.num_slots += 3 if kind == "fq" else 1
     # Pow exponents (the degree adjustments x^k, which grow with the trace
-    # length) are table entries too, so one compiled kernel serves every
-    # trace length.
+    # length) stay out of the source, so one compiled kernel serves every
+    # trace length: the shared powers of X take N from the table, any other
+    # power its exponent.
+    plan.trace_len = trace_len
+    raw = []
     for t in rewritten:
         for node in t.postorder_unique():
-            if node.op == "pow" and ("exp", node.exp) not in plan.slot:
-                plan.slot[("exp", node.exp)] = plan.num_slots
-                plan.scalars.append(("exp", node.exp, "raw"))
-                plan.num_slots += 1
+            if node.op != "pow":
+                continue
+            key = None
+            if (trace_len and node.a.op == "leaf"
+                    and isinstance(node.a.leaf, X)):
+                key = power_key(node.exp, trace_len)
+            if key is None:
+                raw.append(node.exp)
+            elif node.exp not in plan.power_of:
+                plan.power_of[node.exp] = key
+    plan.powers = sorted(set(plan.power_of.values()))
+    if _chain(plan)[0]:
+        raw.insert(0, trace_len)
+    for e in raw:
+        if ("exp", e) not in plan.slot:
+            plan.slot[("exp", e)] = plan.num_slots
+            plan.scalars.append(("exp", e, "raw"))
+            plan.num_slots += 1
     return plan
 
 
@@ -266,17 +315,94 @@ _ARG_NAMES = "trace, ext, x, per, inv, inv3, s"
 def _c_op(op: str, a, b):
     """C expression of a binary op on (kind, name) operands -> (kind, expr)."""
     (ka, va), (kb, vb) = a, b
+    mul = "_cc" if op == "mul" else ""
     if ka == kb == "fp":
-        return "fp", f"gl_{op}({va}, {vb})"
+        return "fp", f"gl_{op}{mul}({va}, {vb})"
     if ka == kb:
-        return "fq", f"gl3_{op}({va}, {vb})"
+        return "fq", f"gl3_{op}{mul}({va}, {vb})"
     if ka == "fp":  # both ops commute: put the Fq3 operand first
         va, vb = vb, va
-    return "fq", f"gl3_{op}_base({va}, {vb})"
+    return "fq", f"gl3_{op}_base{mul}({va}, {vb})"
 
 
-def _generate_group(plan: Plan, ce_blowup: int, start: int, stop: int) -> str:
-    lines = []
+def _pow_var(base: str, k: int, memo: dict, emit) -> str:
+    """The name of base^k, built from memo's powers: the square of
+    base^(k/2) for k a power of two, else base^(k - 2^j) * base^(2^j) with
+    2^j the top bit of k; each new power one product (emit)."""
+    if k == 0:
+        return "1ULL"
+    if k not in memo:
+        top = 1 << (k.bit_length() - 1)
+        if top == k:
+            h = _pow_var(base, k // 2, memo, emit)
+            memo[k] = emit(h, h)
+        else:
+            memo[k] = emit(_pow_var(base, k - top, memo, emit),
+                           _pow_var(base, top, memo, emit))
+    return memo[k]
+
+
+def _chain(plan: Plan) -> tuple[bool, bool]:
+    """(whether the powers need y = x^N, whether also r = x^(N - 1))."""
+    running = any(k[0] == "nm1" for k in plan.powers)
+    return running or any(k[1] for k in plan.powers), running
+
+
+def _chain_source(plan: Plan) -> str:
+    """The body of ms_eval_chain: y = x^N by log2 N squarings, N from the
+    scalar table, and where a power needs it the running product r =
+    x^(N - 1) (one more product a squaring)."""
+    chain, running = _chain(plan)
+    if not chain:
+        return "    (void)s;\n    *y = x;\n    *r = 1;"
+    slot = plan.slot[("exp", plan.trace_len)]
+    lines = ["    uint64_t yy = x, rr = 1;",
+             f"    for (uint64_t m = s[{slot}]; m > 1; m >>= 1) {{  // N"]
+    if running:
+        lines.append("        rr = gl_mul_cc_lazy(rr, yy);")
+    lines += ["        yy = gl_mul_cc_lazy(yy, yy);", "    }",
+              "    *y = gl_canon(yy);", "    *r = gl_canon(rr);"]
+    return "\n".join(lines)
+
+
+def _powers_source(plan: Plan, ks) -> tuple[str, int]:
+    """A body that sets pw[k] for each k in ks from x, y and r (short
+    chains, shared where the powers share a factor), and its products."""
+    lines, count = ["    (void)x; (void)y; (void)r;"], [0]
+
+    def emit(a: str, b: str) -> str:
+        name = f"p{count[0]}"
+        count[0] += 1
+        lines.append(f"    const uint64_t {name} = gl_mul_cc({a}, {b});")
+        return name
+
+    xs, ys = {1: "x"}, {1: "y"}
+    for k in ks:
+        key = plan.powers[k]
+        if key[0] == "nm1":
+            parts = [_pow_var("y", key[1], ys, emit), "r"]
+        else:
+            parts = [_pow_var("y", key[1], ys, emit),
+                     _pow_var("x", key[2], xs, emit)]
+        parts = [v for v in parts if v != "1ULL"] or ["1ULL"]
+        value = parts[0] if len(parts) == 1 else emit(*parts)
+        lines.append(f"    pw[{k}] = {value};")
+    return "\n".join(lines), count[0]
+
+
+def power_products(plan: Plan) -> tuple[int, int]:
+    """The products of the shared powers of X at their least, once a
+    point: (products a squaring of the chain takes, products after it)."""
+    chain, running = _chain(plan)
+    return ((2 if running else 1) * chain,
+            _powers_source(plan, range(len(plan.powers)))[1])
+
+
+def _generate_group(plan: Plan, ce_blowup: int, g: int) -> str:
+    """Group g's per-point function, and the function of the shared powers
+    it reads."""
+    start, stop = plan.groups[g]
+    lines, used = [], []
     counter = [0]
 
     def var(kind: str, expr: str):
@@ -289,7 +415,7 @@ def _generate_group(plan: Plan, ce_blowup: int, start: int, stop: int) -> str:
     def leaf_fn(leaf):
         slot = plan.slot.get(_leaf_key(leaf))
         if isinstance(leaf, X):
-            return var("fp", "x[i]")
+            return "fp", "xi"
         if isinstance(leaf, Trace):
             idx = f"(i + ({ce_blowup * leaf.offset}LL)) & mask"
             if leaf.column < plan.num_base:
@@ -312,6 +438,10 @@ def _generate_group(plan: Plan, ce_blowup: int, start: int, stop: int) -> str:
         if op == "neg":
             return var(kind, f"{pre}_neg({v})")
         if op == "pow":
+            if v == "xi" and exp in plan.power_of:
+                k = plan.powers.index(plan.power_of[exp])
+                used.append(k)
+                return "fp", f"pw[{k}]"
             return var(kind, f"{pre}_pow({v}, s[{plan.slot[('exp', exp)]}])")
         return var(*_c_op(op, a, b))
 
@@ -322,63 +452,229 @@ def _generate_group(plan: Plan, ce_blowup: int, start: int, stop: int) -> str:
     acc = "\n".join(
         f"    acc = {_c_op('add', ('fq' if ext else 'fp', 'acc'), o)[1]};"
         for o in outs)
-    if ext:
-        zero = "gl3_from_base(0)"
-        load = "if (accumulate) r = gl3_add(r, gl3_load(out, i, n));"
-        store = "gl3_store(out, i, n, r);"
-    else:
-        zero = "0"
-        load = "if (accumulate) r = gl_add(r, out[i]);"
-        store = "out[i] = r;"
-    return f"""// Generated by ministark_tpu_torch/ops/eval.py: the sum of constraint
-// terms {start}..{stop - 1} of {len(plan.terms)} at one CE-domain point.
-#include "goldilocks.cuh"
-
-GL_HD {ctype} ms_eval_point(int64_t i, int64_t n, {_ARGS}) {{
+    zero = "gl3_from_base(0)" if ext else "0"
+    used = sorted(set(used))
+    powers, _n = _powers_source(plan, used)
+    return f"""
+// terms {start}..{stop - 1}
+GL_HD {ctype} ms_eval_group{g}(int64_t i, int64_t n, {_ARGS},
+                               const uint64_t* pw) {{
     const int64_t mask = n - 1;
+    const uint64_t xi = x[i];
+    (void)mask; (void)xi; (void)pw;
 {body}
     {ctype} acc = {zero};
 {acc}
     return acc;
 }}
 
-GL_HD void ms_eval_store(int64_t i, int64_t n, {_ARGS},
-                         uint64_t* out, int accumulate) {{
-    {ctype} r = ms_eval_point(i, n, {_ARG_NAMES});
-    {load}
-    {store}
+// the shared powers group {g} reads
+GL_HD void ms_eval_powers{g}(uint64_t x, uint64_t y, uint64_t r,
+                             uint64_t* pw) {{
+{powers}
+}}
+"""
+
+
+def generate_source(plan: Plan, ce_blowup: int) -> str:
+    """The translation unit of the whole sum (see the module docstring)."""
+    ext = plan.fq_is_ext
+    ctype = "gl3" if ext else "uint64_t"
+    zero = "gl3_from_base(0)" if ext else "0"
+    add = "gl3_add" if ext else "gl_add"
+    planes = 3 if ext else 1
+
+    def load(p, i="i"):
+        return f"gl3_load({p}, {i}, n)" if ext else f"{p}[{i}]"
+
+    def store(p, v, i="i"):
+        return f"gl3_store({p}, {i}, n, {v});" if ext else f"{p}[{i}] = {v};"
+
+    G = len(plan.groups)
+    groups = "".join(_generate_group(plan, ce_blowup, g) for g in range(G))
+    all_powers, _n = _powers_source(plan, range(len(plan.powers)))
+    one = "\n    else ".join(
+        f"if constexpr (G == {g}) {{\n"
+        f"        ms_eval_powers{g}(xi, y, r, pw);\n"
+        f"        v = ms_eval_group{g}(i, n, {_ARG_NAMES}, pw);\n    }}"
+        for g in range(G))
+
+    def cases(indent, fmt):
+        return "\n".join(f"{indent}case {g}: {fmt.format(g=g)} break;"
+                         for g in range(G))
+
+    return f"""// Generated by ministark_tpu_torch/ops/eval.py: the sum of the
+// {len(plan.terms)} constraint terms at one CE-domain point, in {G}
+// group(s), and the shared powers of X.
+#include "goldilocks.cuh"
+
+#define MS_EVAL_GROUPS {G}
+#define MS_EVAL_POWERS {max(len(plan.powers), 1)}
+#define MS_EVAL_PLANES {planes}
+
+// y = x^N and r = x^(N - 1) (N, the trace length, from the table)
+GL_HD void ms_eval_chain(uint64_t x, const uint64_t* __restrict__ s,
+                         uint64_t* y, uint64_t* r) {{
+{_chain_source(plan)}
+}}
+
+// every shared power, pw[k] = x^e for plan.powers[k]
+GL_HD void ms_eval_powers(uint64_t x, uint64_t y, uint64_t r, uint64_t* pw) {{
+{all_powers}
+}}
+{groups}
+// group G at point i, its powers from y and r
+template <int G>
+GL_HD {ctype} ms_eval_one(int64_t i, int64_t n, {_ARGS}, uint64_t y,
+                          uint64_t r) {{
+    const uint64_t xi = x[i];
+    uint64_t pw[MS_EVAL_POWERS];
+    {ctype} v = {zero};
+    {one}
+    return v;
+}}
+
+// group g at point i (g at run time)
+GL_HD {ctype} ms_eval_any(int g, int64_t i, int64_t n, {_ARGS}, uint64_t y,
+                          uint64_t r) {{
+    switch (g) {{
+{cases("    ", "return ms_eval_one<{g}>(i, n, " + _ARG_NAMES + ", y, r);")}
+    }}
+    return {zero};
 }}
 
 #ifdef __CUDACC__
 #include "launch.cuh"
 
-__global__ void ms_eval_kernel({_ARGS}, uint64_t* __restrict__ out,
-                               int64_t n, int accumulate) {{
+#define MS_EVAL_THREADS 128
+
+// a launch a group: y and r from the chain pass (yr, (2, n)) or, where
+// yr is null, from the chain at each point; adds into out when accumulate
+template <int G>
+__global__ void __launch_bounds__(MS_EVAL_THREADS)
+    ms_eval_group_kernel({_ARGS}, const uint64_t* __restrict__ yr,
+                         uint64_t* __restrict__ out, int64_t n,
+                         int accumulate) {{
     for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-         i += (int64_t)gridDim.x * blockDim.x)
-        ms_eval_store(i, n, {_ARG_NAMES}, out, accumulate);
+         i += (int64_t)gridDim.x * blockDim.x) {{
+        uint64_t y, r;
+        if (yr) {{
+            y = yr[i];
+            r = yr[n + i];
+        }} else {{
+            ms_eval_chain(x[i], s, &y, &r);
+        }}
+        {ctype} v = ms_eval_one<G>(i, n, {_ARG_NAMES}, y, r);
+        if (accumulate) v = {add}(v, {load("out")});
+        {store("out", "v")}
+    }}
 }}
 
-MS_API int ms_eval({_ARGS}, uint64_t* out, int64_t n, int accumulate,
-                   cudaStream_t stream) {{
+// every group in one launch, group blockIdx.y into its part of `part`
+// ((groups, planes, n)), the chain at each point
+__global__ void __launch_bounds__(MS_EVAL_THREADS)
+    ms_eval_grid_kernel({_ARGS}, uint64_t* __restrict__ part, int64_t n) {{
+    const int g = blockIdx.y;
+    uint64_t* dst = part + (int64_t)g * MS_EVAL_PLANES * n;
+    for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+         i += (int64_t)gridDim.x * blockDim.x) {{
+        uint64_t y, r;
+        ms_eval_chain(x[i], s, &y, &r);
+        const {ctype} v = ms_eval_any(g, i, n, {_ARG_NAMES}, y, r);
+        {store("dst", "v")}
+    }}
+}}
+
+__global__ void ms_eval_sum_kernel(const uint64_t* __restrict__ part,
+                                   uint64_t* __restrict__ out, int64_t n) {{
+    for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+         i += (int64_t)gridDim.x * blockDim.x) {{
+        {ctype} v = {load("part")};
+        for (int g = 1; g < MS_EVAL_GROUPS; g++)
+            v = {add}(v, {load("(part + (int64_t)g * MS_EVAL_PLANES * n)")});
+        {store("out", "v")}
+    }}
+}}
+
+__global__ void ms_eval_chain_kernel(const uint64_t* __restrict__ x,
+                                     const uint64_t* __restrict__ s,
+                                     uint64_t* __restrict__ yr, int64_t n) {{
+    for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+         i += (int64_t)gridDim.x * blockDim.x)
+        ms_eval_chain(x[i], s, yr + i, yr + n + i);
+}}
+
+MS_API int ms_eval_chain_pass(const uint64_t* x, const uint64_t* s,
+                              uint64_t* yr, int64_t n, cudaStream_t stream) {{
     if (n > 0)
-        ms_eval_kernel<<<ms_blocks(n, 128), 128, 0, stream>>>(
-            {_ARG_NAMES}, out, n, accumulate);
+        ms_eval_chain_kernel<<<ms_blocks(n, 256), 256, 0, stream>>>(x, s, yr,
+                                                                   n);
+    return ms_last_error();
+}}
+
+MS_API int ms_eval_group(int g, {_ARGS}, const uint64_t* yr, uint64_t* out,
+                         int64_t n, int accumulate, cudaStream_t stream) {{
+    if (n <= 0) return ms_last_error();
+    const unsigned grid = ms_blocks(n, MS_EVAL_THREADS);
+    switch (g) {{
+{cases("    ", "ms_eval_group_kernel<{g}><<<grid, MS_EVAL_THREADS, 0, stream>>>(" + _ARG_NAMES + ", yr, out, n, accumulate);")}
+    default: return (int)cudaErrorInvalidValue;
+    }}
+    return ms_last_error();
+}}
+
+MS_API int ms_eval_grid({_ARGS}, uint64_t* part, int64_t n,
+                        cudaStream_t stream) {{
+    if (n > 0)
+        ms_eval_grid_kernel<<<dim3(ms_blocks(n, MS_EVAL_THREADS),
+                                   MS_EVAL_GROUPS), MS_EVAL_THREADS, 0,
+                              stream>>>({_ARG_NAMES}, part, n);
+    return ms_last_error();
+}}
+
+MS_API int ms_eval_sum(const uint64_t* part, uint64_t* out, int64_t n,
+                       cudaStream_t stream) {{
+    if (n > 0)
+        ms_eval_sum_kernel<<<ms_blocks(n, 256), 256, 0, stream>>>(part, out,
+                                                                 n);
     return ms_last_error();
 }}
 #else
-extern "C" void ms_eval_host({_ARGS}, uint64_t* out, int64_t n,
-                             int accumulate) {{
-    for (int64_t i = 0; i < n; i++)
-        ms_eval_store(i, n, {_ARG_NAMES}, out, accumulate);
+// the launch-a-group kernels' sum (groups = 1), or the one launch's parts
+// and their sum (groups = 0): the chain at each point
+extern "C" void ms_eval_host({_ARGS}, uint64_t* part, uint64_t* out,
+                             int64_t n, int groups) {{
+    for (int g = 0; g < MS_EVAL_GROUPS; g++) {{
+        uint64_t* dst = groups ? out : part + (int64_t)g * MS_EVAL_PLANES * n;
+        for (int64_t i = 0; i < n; i++) {{
+            uint64_t y, r;
+            ms_eval_chain(x[i], s, &y, &r);
+            {ctype} v = ms_eval_any(g, i, n, {_ARG_NAMES}, y, r);
+            if (groups && g > 0) v = {add}(v, {load("out")});
+            {store("dst", "v")}
+        }}
+    }}
+    if (!groups)
+        for (int64_t i = 0; i < n; i++) {{
+            {ctype} v = {load("part")};
+            for (int g = 1; g < MS_EVAL_GROUPS; g++)
+                v = {add}(v, {load("(part + (int64_t)g * MS_EVAL_PLANES * n)")});
+            {store("out", "v")}
+        }}
+}}
+
+// pw[k m + j] = the k-th shared power of x[j]
+extern "C" void ms_eval_powers_host(const uint64_t* x, const uint64_t* s,
+                                    int64_t m, uint64_t* pw) {{
+    for (int64_t j = 0; j < m; j++) {{
+        uint64_t y, r, v[MS_EVAL_POWERS];
+        ms_eval_chain(x[j], s, &y, &r);
+        ms_eval_powers(x[j], y, r, v);
+        for (int k = 0; k < MS_EVAL_POWERS; k++) pw[k * m + j] = v[k];
+    }}
 }}
 #endif
 """
-
-
-def generate_sources(plan: Plan, ce_blowup: int) -> list[str]:
-    """One translation unit per term group (see the module docstring)."""
-    return [_generate_group(plan, ce_blowup, a, b) for a, b in plan.groups]
 
 
 # -- the plain version ---------------------------------------------------------
@@ -449,13 +745,21 @@ def eval_terms_plain(plan: Plan, ce_blowup: int, trace, ext, x, per, inv,
     return acc[1]
 
 
-def eval_terms(plan: Plan, sources: list[str], ce_blowup: int, trace, ext, x,
-               per, inv, inv3, s):
+def eval_launch(n: int) -> str:
+    """How kernel E runs over n CE points: "groups", the chain pass and a
+    launch a group adding into the output, from GROUPS_FROM points; below,
+    "grid", every group in one launch (a grid row a group, each computing
+    the chain) and a launch that sums the groups' parts."""
+    return "groups" if n >= GROUPS_FROM else "grid"
+
+
+def eval_terms(plan: Plan, source: str, ce_blowup: int, trace, ext, x, per,
+               inv, inv3, s, launch: str | None = None):
     """Composition sum over the CE domain: trace (nbase, n), ext (next, 3,
     n), x (n,), per (nper, n), inv (ninv, n), inv3 (ninv3, 3, n), s (S,)
     scalar table.  Returns (n,) for an Fp AIR, (3, n) for an Fq3 one.  CUDA
-    tensors launch the generated kernels, one per term group, each adding
-    into the output; CPU tensors take the plain version."""
+    tensors launch the generated kernels (as `launch` says, by default
+    ``eval_launch(n)``); CPU tensors take the plain version."""
     if not x.is_cuda:
         return eval_terms_plain(plan, ce_blowup, trace, ext, x, per, inv,
                                 inv3, s)
@@ -467,10 +771,26 @@ def eval_terms(plan: Plan, sources: list[str], ce_blowup: int, trace, ext, x,
         build.check_cuda(t, name=name)
         args.append(t)
     kernel = KERNEL_EXT3 if plan.fq_is_ext else KERNEL
-    out = torch.empty((3, n) if plan.fq_is_ext else (n,), dtype=torch.int64,
-                      device=x.device)
-    for g, source in enumerate(sources):
-        kernel.launch("ms_eval", *[build.ptr(t) for t in args],
-                      build.ptr(out), build.i64(n), build.c_int(int(g > 0)),
+    shape = (3, n) if plan.fq_is_ext else (n,)
+    out = torch.empty(shape, dtype=torch.int64, device=x.device)
+    ptrs = [build.ptr(t) for t in args]
+    G = len(plan.groups)
+    if (launch or eval_launch(n)) == "grid":
+        part = (out if G == 1 else
+                torch.empty((G, *shape), dtype=torch.int64, device=x.device))
+        kernel.launch("ms_eval_grid", *ptrs, build.ptr(part), build.i64(n),
                       source_text=source)
+        if G > 1:
+            kernel.launch("ms_eval_sum", build.ptr(part), build.ptr(out),
+                          build.i64(n), source_text=source)
+        return out
+    yr = None
+    if _chain(plan)[0]:
+        yr = torch.empty((2, n), dtype=torch.int64, device=x.device)
+        kernel.launch("ms_eval_chain_pass", ptrs[2], ptrs[6], build.ptr(yr),
+                      build.i64(n), source_text=source)
+    for g in range(G):
+        kernel.launch("ms_eval_group", build.c_int(g), *ptrs,
+                      build.ptr_or_null(yr), build.ptr(out), build.i64(n),
+                      build.c_int(int(g > 0)), source_text=source)
     return out

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Kernels A (batch inverse), B (column NTT), C (transpose), D (SHA-256),
-the multi-pass NTT and G (RPO-256) against an earlier version of their
-sources, on one card, at the shapes of chip_smoke.py's paths.
+E (constraint evaluation), F (DEEP), the multi-pass NTT and G (RPO-256)
+against an earlier version of their sources, on one card, at the shapes
+of chip_smoke.py's paths.
 
     git show <commit>:ministark_tpu_torch/csrc/ntt.cu > DIR/ntt.cu
     git show <commit>:ministark_tpu_torch/csrc/transpose.cu > DIR/transpose.cu
     git show <commit>:ministark_tpu_torch/csrc/inv.cu > DIR/inv.cu
     git show <commit>:ministark_tpu_torch/csrc/rpo256.cu > DIR/rpo256.cu
     git show <commit>:ministark_tpu_torch/csrc/sha256.cu > DIR/sha256.cu
+    git show <commit>:ministark_tpu_torch/csrc/deep.cu > DIR/deep.cu
     git show <commit>:ministark_tpu_torch/csrc/goldilocks.cuh > DIR/goldilocks.cuh
+    git archive <commit> | tar -x -C DIR/parent
     python3 scripts/ab_kernels.py DIR [--reps N] [--paths F,B,W,L,R,H]
                                       [--inv-variants] [--rpo-sweep]
+                                      [--old-tree DIR/parent]
 
 Builds each of the sources found in DIR with the port's nvcc flags into
 DIR, its includes looked up in DIR before csrc/ (so an old inv.cu takes
@@ -39,6 +43,16 @@ launch a level; the new one its merges and the tops launch); on W also
 the tops launch from TOPS_LEAVES = 0 (none), 16, .., 1024 leaves, each in
 turns with the others (the sweep that sets ``ops/sha256.py``'s value).
 
+With an old deep.cu, on F, B, W and H: kernel F's DEEP sum at the
+prove's terms (the old pointer tables against the new plan), and the new
+kernel at 1, 2, 4 and 8 lanes a point on F, B and W.  With ``--old-tree``
+(a whole older tree): kernel E, the old tree's generated evaluator (one
+launch a term group) against the new one as ``eval_terms`` launches it,
+each with its own scalar table (the same values; the Pow exponents, or
+the trace length, in each plan's slots), on F, B, W and H, and on B and W
+the new one's launches each way (``ops.eval.eval_launch``), and on
+gl_mul's C++ products in place of the carry-chain ones.
+
 With an old rpo256.cu, ``--rpo-sweep`` also times kernel G's layouts
 against the old kernel, each in turns with the others (every variant,
 then again in reverse order): one tree level of n merges for n = 1 ..
@@ -46,6 +60,14 @@ then again in reverse order): one tree level of n merges for n = 1 ..
 kernel and by the new one with E = 1 and 3 elements of a state a lane
 (the crossover ``ops/rpo256.py`` takes), and a 2^15-leaf tree with the
 tops launch taking the last 16 .. 64 leaves or none.
+
+``--ood-variants`` builds csrc/deep.cu with an entry point for each OOD
+sums variant (pairs a group, threads a block; OOD_VARIANTS), prints
+ptxas's registers, and times them in turns with the shipped kernel at F's,
+B's and W's shapes.  ``--ood-staged`` times the shipped OOD kernel against
+the staged design of scripts/ood_staged.cu (a block stages the weights of
+a tile of points in shared memory once for all its groups, a group a
+warp) at 2, 4 and 8 pairs a group, in turns, at the same shapes.
 
 ``--inv-variants`` also builds csrc/inv.cu with one entry point for each
 kernel A variant (the group size K, the group kept in registers or read
@@ -73,7 +95,33 @@ PROTOS = {"ntt": ("ms_col_ntt", "ms_col_ntt_stage"),
           "transpose": ("ms_transpose",),
           "inv": ("ms_inv_fp", "ms_inv_ext3"),
           "rpo256": ("ms_rpo_hash_rows", "ms_rpo_merge", "ms_rpo_grind"),
-          "sha256": ("ms_hash_rows", "ms_merge")}
+          "sha256": ("ms_hash_rows", "ms_merge"),
+          "deep": ("ms_deep", "ms_deep_ext3")}
+
+# the old tree's generated evaluators: the sources of each term group and
+# the Pow exponents of its scalar table, in slot order
+_OLD_EVAL = """
+import json
+from ministark_tpu_torch import eval as teval
+from ministark_tpu_torch.air import Air, ProofOptions
+from ministark_tpu_torch.fields.scalar import Fp
+from ministark_tpu_torch.models.brainfuck import (BrainfuckAirConfig,
+                                                  BrainfuckClaim)
+from ministark_tpu_torch.models.fib import FibAirConfig
+out = {"fib": {"exps": {}}, "bf": {"exps": {}}}
+for name, rows in (("fib", 1 << 21), ("bf", 1 << 20), ("bf", 1 << 11)):
+    if name == "fib":
+        air = Air(FibAirConfig, rows, Fp(0), ProofOptions(32, 4, 8, 8, 64))
+    else:
+        air = Air(BrainfuckAirConfig, rows, BrainfuckClaim("", b"", b""),
+                  ProofOptions(19, 16, 20, 16, 16))
+    plan, sources, _ = teval._plan_for(air)
+    out[name]["sources"] = sources
+    out[name]["slots"] = plan.num_slots
+    out[name]["exps"][rows] = [v for what, v, _k in plan.scalars
+                               if what == "exp"]
+print(json.dumps(out))
+"""
 
 
 def _nvcc(src, out, include, *extra):
@@ -401,6 +449,432 @@ def sha_ab(paths, old, rand, stream, record, record_variants, dev):
         torch.cuda.empty_cache()
 
 
+def ef_ab(paths, old, old_tree, rand, stream, record, record_variants,
+          dev):
+    """Kernels E and F, old against new, at F's, B's, W's and H's shapes
+    (see the module docstring)."""
+    import json
+
+    import torch
+
+    from ministark_tpu_torch import eval as teval
+    from ministark_tpu_torch.air import Air, ProofOptions
+    from ministark_tpu_torch.fields.scalar import Fp
+    from ministark_tpu_torch.models.brainfuck import (BrainfuckAirConfig,
+                                                      BrainfuckClaim)
+    from ministark_tpu_torch.models.fib import FibAirConfig
+    from ministark_tpu_torch.ops import build
+    from ministark_tpu_torch.ops import deep as kdeep
+    from ministark_tpu_torch.ops import eval as keval
+
+    evals = {}
+    if old_tree:
+        dump = subprocess.run([sys.executable, "-c", _OLD_EVAL],
+                              cwd=old_tree, capture_output=True, text=True,
+                              check=True).stdout
+        csrc = os.path.join(old_tree, "ministark_tpu_torch", "csrc")
+        jobs = []
+        for name, d in json.loads(dump.splitlines()[-1]).items():
+            libs = []
+            for g, text in enumerate(d["sources"]):
+                src = os.path.join(old_tree, f"_ab_eval_{name}{g}.cu")
+                with open(src, "w") as f:
+                    f.write(text)
+                jobs.append((libs, src, _nvcc(src, src + ".so", csrc)))
+            evals[name] = (d, libs)
+        for libs, src, proc in jobs:
+            _, err = proc.communicate(timeout=900)
+            if proc.returncode:
+                raise RuntimeError(f"building {src} failed:\n{err}")
+            lib = ctypes.CDLL(src + ".so")
+            lib.ms_eval.restype = ctypes.c_int
+            libs.append(lib)
+
+    def old_eval(d, libs, args, s_old, n, ext):
+        out = torch.empty((3, n) if ext else (n,), dtype=torch.int64,
+                          device=dev)
+        for g, lib in enumerate(libs):
+            rc = lib.ms_eval(*[build.ptr(t) for t in args], build.ptr(s_old),
+                             build.ptr(out), build.i64(n),
+                             build.c_int(int(g > 0)), stream())
+            assert rc == 0, rc
+        return out
+
+    def old_deep(cols, rows, s, x, ext):
+        n, T = x.shape[0], len(cols)
+        ptrs = torch.tensor([t.data_ptr() for t in list(cols) + list(rows)],
+                            dtype=torch.int64).to(dev)
+        out = torch.empty((3, n) if ext else (n,), dtype=torch.int64,
+                          device=dev)
+        if ext:
+            kinds = torch.tensor([int(c.ndim == 2) for c in cols],
+                                 dtype=torch.int64).to(dev)
+            rc = old["deep"].ms_deep_ext3(
+                build.ptr(ptrs), build.ptr(kinds), build.ptr(ptrs[T:]),
+                build.ptr(s), build.ptr(x), build.ptr(out), build.i64(n),
+                build.i64(T), stream())
+        else:
+            rc = old["deep"].ms_deep(
+                build.ptr(ptrs), build.ptr(ptrs[T:]), build.ptr(s),
+                build.ptr(x), build.ptr(out), build.i64(n), build.i64(T),
+                stream())
+        assert rc == 0, rc
+        return out
+
+    shapes = {"F": ("fib", 1 << 21), "B": ("bf", 1 << 20),
+              "W": ("bf", 1 << 11), "H": ("bf", 1 << 11)}
+    for path, (kind, rows) in shapes.items():
+        if path not in paths:
+            continue
+        ext = kind == "bf"
+        if ext:
+            air = Air(BrainfuckAirConfig, rows, BrainfuckClaim("", b"", b""),
+                      ProofOptions(19, 16, 20, 16, 16))
+        else:
+            air = Air(FibAirConfig, rows, Fp(0), ProofOptions(32, 4, 8, 8, 64))
+        plan, source, _ = teval._plan_for(air)
+        ce_n = air.ce_domain().size
+        nb = air.config.NUM_BASE_COLUMNS
+        ne = getattr(air.config, "NUM_EXTENSION_COLUMNS", 0)
+        n_fp = sum(1 for k in plan.inv_keys if plan.inv_kind[k] == "fp")
+        args = [rand(nb, ce_n), rand(ne, 3, ce_n),
+                air.ce_domain().elements(dev),
+                torch.zeros((len(plan.periodic), ce_n), dtype=torch.int64,
+                            device=dev),
+                rand(n_fp, ce_n), rand(len(plan.inv_keys) - n_fp, 3, ce_n)]
+        s_new = rand(max(plan.num_slots, 1))
+        for what, e, _k in plan.scalars:
+            if what == "exp":
+                s_new[plan.slot[("exp", e)]] = e
+        cb = air.ce_blowup_factor
+
+        def new_eval(launch=None):
+            return keval.eval_terms(plan, source, cb, *args, s_new,
+                                    launch=launch)
+
+        if kind in evals:
+            d, libs = evals[kind]
+            exps = d["exps"][str(rows)]
+            base = s_new[:d["slots"] - len(exps)]
+            s_old = torch.cat([base, torch.tensor(exps, dtype=torch.int64,
+                                                  device=dev)])
+            record("eval_ext3" if ext else "eval", path,
+                   [({"old": lambda: old_eval(d, libs, args[:6], s_old,
+                                              ce_n, ext),
+                      "new": new_eval}, ce_n)])
+        if path in ("B", "W"):
+            # every group in one launch (and the sum of the parts), a launch
+            # a group after the chain pass, a launch a group each with the
+            # chain, and the first two on gl_mul's C++ products
+            cpp = (source.replace("gl3_mul_cc(", "gl3_mul(")
+                   .replace("gl3_mul_base_cc(", "gl3_mul_base(")
+                   .replace("gl_mul_cc(", "gl_mul("))
+            kernel = keval.KERNEL_EXT3
+
+            def groups_chain():
+                out = torch.empty((3, ce_n), dtype=torch.int64, device=dev)
+                ptrs = [build.ptr(t) for t in args + [s_new]]
+                for g in range(len(plan.groups)):
+                    kernel.launch("ms_eval_group", build.c_int(g), *ptrs,
+                                  build.ptr_or_null(None), build.ptr(out),
+                                  build.i64(ce_n), build.c_int(int(g > 0)),
+                                  source_text=source)
+                return out
+
+            fns = {"grid": lambda: new_eval("grid"),
+                   "groups": lambda: new_eval("groups"),
+                   "groups_chain": groups_chain}
+            for how in ("grid", "groups"):
+                fns[f"{how}_cpp"] = lambda how=how: keval.eval_terms(
+                    plan, cpp, cb, *args, s_new, launch=how)
+            record_variants("eval_ext3 launches", path, fns,
+                            keval.eval_terms_plain(plan, cb, *args, s_new)
+                            if ce_n <= 1 << 16 else new_eval("groups"),
+                            ce_n)
+        del args
+        torch.cuda.empty_cache()
+
+        # the DEEP sum: the prove's terms, as chip_smoke.py's row
+        n = air.lde_domain().size
+        if ext:
+            args_t = air.trace_arguments()
+            offsets = sorted({off for _c, off in args_t})
+            base, extc = rand(nb, n), rand(ne, 3, n)
+            comp, invs = rand(cb, 3, n), rand(len(offsets) + 1, 3, n)
+            # one view a column and a point, as composer.py gives them
+            views = [base[c] for c in range(nb)] + [extc[e] for e in range(ne)]
+            inv_rows = list(invs)
+            cols = [views[c] for c, _o in args_t]
+            rows_ = [inv_rows[offsets.index(o)] for _c, o in args_t]
+            cols += [comp[k] for k in range(cb)]
+            rows_ += [inv_rows[-1]] * cb
+            s = rand(6 * len(cols) + 6)
+        else:
+            T = len(air.trace_arguments()) + cb
+            cols = [rand(n) for _ in range(T)]
+            invs = rand(3, n)
+            inv_rows = list(invs)
+            rows_ = [inv_rows[t % 2 if t < T - cb else 2] for t in range(T)]
+            s = rand(2 * T + 2)
+        x = air.lde_domain().elements(dev)
+        fn = kdeep.deep_ext3 if ext else kdeep.deep
+        if "deep" in old:
+            record("deep_ext3" if ext else "deep", path,
+                   [({"old": lambda: old_deep(cols, rows_, s, x, ext),
+                      "new": lambda: fn(cols, rows_, s, x)}, n)])
+        if path in ("B", "W", "F"):
+            record_variants("deep lanes", path,
+                            {f"lanes{k}": lambda k=k: fn(cols, rows_, s, x,
+                                                         lanes=k)
+                             for k in (1, 2, 4, 8)}, fn(cols, rows_, s, x), n)
+        del cols, rows_, invs
+        torch.cuda.empty_cache()
+
+
+# kernel F's OOD sums: (Fq3, P pairs a group, threads a block)
+OOD_VARIANTS = [(False, 4, 256), (False, 8, 128), (False, 8, 256),
+                (False, 16, 256), (True, 2, 256), (True, 4, 128),
+                (True, 4, 256), (True, 8, 256)]
+
+
+def ood_variant_name(v):
+    ext, P, T = v
+    return f"ab_ood_{'fq3' if ext else 'fp'}_p{P}_t{T}"
+
+
+def _ood_inputs(path, rand, dev):
+    """The proves' OOD sums at `path`'s shapes: (cols, invs, pairs, gpow,
+    ext) as chip_smoke.py's ood_sums rows give them."""
+    from ministark_tpu_torch.air import Air, ProofOptions
+    from ministark_tpu_torch.models.brainfuck import (BrainfuckAirConfig,
+                                                      BrainfuckClaim)
+    from ministark_tpu_torch.ntt import powers
+
+    ext = path != "F"
+    if ext:
+        rows = 1 << 20 if path == "B" else 1 << 11
+        air = Air(BrainfuckAirConfig, rows, BrainfuckClaim("", b"", b""),
+                  ProofOptions(19, 16, 20, 16, 16))
+        n = air.lde_domain().size
+        cols = [rand(n) for _ in range(17)]
+        cols += [rand(3, n) for _ in range(9 + 16)]
+        pairs = sorted({(off, c) for c, off in air.trace_arguments()},
+                       key=lambda jc: (jc[1], jc[0]))
+        pairs += [(2, 26 + k) for k in range(16)]
+        invs = rand(3, 3, n)
+    else:
+        n = 1 << 23
+        cols = [rand(n) for _ in range(9)]
+        pairs = [(j, c) for c in range(8) for j in (0, 1)] + [(2, 8)]
+        invs = rand(3, n)
+    return cols, invs, pairs, powers(7, n, dev), ext
+
+
+def ood_variants(paths, out_dir, rand, record_variants, dev):
+    """Kernel F's OOD sums built at each OOD_VARIANTS entry (pairs a group,
+    threads a block; csrc/deep.cu with one entry point a variant, ptxas's
+    registers printed), each checked against the kernel as it ships and
+    timed in turns at F's, B's and W's shapes (the proves' pairs)."""
+    import torch
+
+    from ministark_tpu_torch.ops import build
+    from ministark_tpu_torch.ops import deep as kdeep
+
+    lines = [f'#include "{os.path.join(build.CSRC, "deep.cu")}"']
+    for v in OOD_VARIANTS:
+        ext, P, T = v
+        F = "dp_fq3" if ext else "dp_fp"
+        lines.append(
+            f"MS_API int {ood_variant_name(v)}(const int64_t* recs, "
+            f"int64_t groups, const uint64_t* gpow, uint64_t* partial, "
+            f"uint64_t* out, int64_t n, int64_t chunks, int64_t pairs, "
+            f"cudaStream_t stream) {{ return launch_ood<{F}, {P}, {T}>("
+            f"recs, groups, gpow, partial, out, n, chunks, pairs, stream); }}")
+    src = os.path.join(out_dir, "ood_variants.cu")
+    with open(src, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    proc = _nvcc(src, src + ".so", build.CSRC, "-Xptxas", "-v")
+    _, err = proc.communicate(timeout=900)
+    if proc.returncode:
+        raise RuntimeError(f"building the OOD variants failed:\n{err}")
+    print("\n".join(line for line in err.splitlines()
+                    if "ood_kernel" in line or "registers" in line),
+          flush=True)
+    lib = ctypes.CDLL(src + ".so")
+
+    def variant(v, cols, invs, pairs, gpow):
+        ext, P, T = v
+        words = kdeep.ood_groups(cols, invs, pairs, ext, P)
+        groups = len(words) // kdeep.ood_record_words(ext, P)
+        recs = torch.tensor(words, dtype=torch.int64).to(dev)
+        chunks = kdeep.ood_chunks(gpow.shape[0], groups)
+        slots = 3 if ext else 1
+        partial = torch.empty(chunks * slots * len(pairs), dtype=torch.int64,
+                              device=dev)
+        fn = getattr(lib, ood_variant_name(v))
+        fn.restype = ctypes.c_int
+
+        def run():
+            out = torch.empty(slots * len(pairs), dtype=torch.int64,
+                              device=dev)
+            rc = fn(build.ptr(recs), build.i64(groups), build.ptr(gpow),
+                    build.ptr(partial), build.ptr(out),
+                    build.i64(gpow.shape[0]), build.i64(chunks),
+                    build.i64(len(pairs)),
+                    ctypes.c_void_p(build.current_stream()))
+            assert rc == 0, rc
+            return out.reshape(3, -1) if ext else out
+        return run
+
+    for path in ("F", "B", "W"):
+        if path not in paths:
+            continue
+        cols, invs, pairs, gpow, ext = _ood_inputs(path, rand, dev)
+        fn = kdeep.ood_sums_ext3 if ext else kdeep.ood_sums
+        fns = {ood_variant_name(v): variant(v, cols, invs, pairs, gpow)
+               for v in OOD_VARIANTS if v[0] == ext}
+        fns["shipped"] = lambda: fn(cols, invs, pairs, gpow)
+        record_variants("ood variants", path, fns, fn(cols, invs, pairs,
+                                                      gpow), n)
+        del cols, invs
+        torch.cuda.empty_cache()
+
+
+# the staged OOD design (scripts/ood_staged.cu): its entry points, pairs a
+# group, for Fp and for Fq3 transcripts
+OOD_STAGED = {False: (2, 4, 8), True: (2, 4)}
+
+
+def _staged_groups(cols, pairs, ext, P):
+    """scripts/ood_staged.cu's groups: a column's pairs in one group where
+    they fit (columns of one kind a group, at most P pairs), in the order
+    of the columns' first pairs; [pairs, kind, column pointers, metas
+    (point << 1, bit 0 where the pair reads the column of the pair before
+    it), the pairs' indices], padded to P."""
+    by_col: dict = {}
+    for k, (j, c) in enumerate(pairs):
+        by_col.setdefault(c, []).append((j, k))
+    info = {c: (cols[c].data_ptr(), int(cols[c].ndim == 2)) for c in by_col}
+    words, cur = [], []
+
+    def flush():
+        if cur:
+            pad = [0] * (P - len(cur))
+            words.extend([len(cur), info[cur[0][0]][1]]
+                         + [info[c][0] for c, _j, _k, _r in cur] + pad
+                         + [j << 1 | r for _c, j, _k, r in cur] + pad
+                         + [k for _c, _j, k, _r in cur] + pad)
+            cur.clear()
+
+    for c, jks in by_col.items():
+        if cur and (len(cur) + len(jks) > P
+                    or info[cur[0][0]][1] != info[c][1]):
+            flush()
+        for m, (j, k) in enumerate(jks):
+            if len(cur) == P:
+                flush()
+                m = 0
+            cur.append((c, j, k, int(m > 0)))
+    flush()
+    return words, len(words) // (2 + 3 * P)
+
+
+def ood_staged(paths, out_dir, rand, record_variants, dev):
+    """Kernel F's OOD sums as csrc/deep.cu ships them against the staged
+    design (scripts/ood_staged.cu, ptxas's registers printed) at each
+    OOD_STAGED pairs a group, in turns, at F's, B's and W's shapes (the
+    proves' pairs).  The staged kernel's tile: 1024 points, halved down to
+    128 while there are fewer than 264 tiles; its warps a block: every
+    group up to 16, else evenly over the fewest blocks."""
+    import torch
+
+    from ministark_tpu_torch.ops import build
+    from ministark_tpu_torch.ops import deep as kdeep
+
+    src = os.path.join(ROOT, "scripts", "ood_staged.cu")
+    so = os.path.join(out_dir, "ood_staged.so")
+    proc = _nvcc(src, so, build.CSRC, "-Xptxas", "-v")
+    _, err = proc.communicate(timeout=600)
+    if proc.returncode:
+        raise RuntimeError(f"building ood_staged.cu failed:\n{err}")
+    print("\n".join(line for line in err.splitlines()
+                    if "registers" in line or "Compiling entry" in line),
+          flush=True)
+    lib = ctypes.CDLL(so)
+
+    def staged(cols, invs, pairs, gpow, ext, P):
+        n, npts = gpow.shape[0], invs.shape[0]
+        words, ngroups = _staged_groups(cols, pairs, ext, P)
+        groups = torch.tensor(words, dtype=torch.int64).to(dev)
+        tile = 1024
+        while tile > 128 and -(-n // tile) < 264:
+            tile //= 2
+        batches = -(-ngroups // 16)
+        warps = -(-ngroups // batches)
+        blocks = min(-(-n // tile), 132 * 8)
+        slots = 3 if ext else 1
+        partial = torch.empty(blocks * slots * len(pairs), dtype=torch.int64,
+                              device=dev)
+        fn = getattr(lib, f"ab_staged_{'fq3' if ext else 'fp'}_p{P}")
+        fn.restype = ctypes.c_int
+
+        def run():
+            out = torch.empty(slots * len(pairs), dtype=torch.int64,
+                              device=dev)
+            rc = fn(build.ptr(groups), build.i64(ngroups), build.i64(warps),
+                    build.ptr(invs), build.i64(npts), build.ptr(gpow),
+                    build.ptr(partial), build.ptr(out), build.i64(n),
+                    build.i64(tile), build.i64(blocks), build.i64(len(pairs)),
+                    ctypes.c_void_p(build.current_stream()))
+            assert rc == 0, rc
+            return out.reshape(3, -1) if ext else out
+        return run
+
+    for path in ("F", "B", "W"):
+        if path not in paths:
+            continue
+        cols, invs, pairs, gpow, ext = _ood_inputs(path, rand, dev)
+        fn = kdeep.ood_sums_ext3 if ext else kdeep.ood_sums
+        # the shipped kernel through its own launch (its groups made once,
+        # as the staged ones are), so that both are timed without the
+        # wrapper's host work
+        fns = {"shipped": _shipped_ood(cols, invs, pairs, gpow, ext, dev)}
+        for P in OOD_STAGED[ext]:
+            fns[f"staged_p{P}"] = staged(cols, invs, pairs, gpow, ext, P)
+        record_variants("ood staged", path, fns, fn(cols, invs, pairs, gpow),
+                        gpow.shape[0])
+        del cols, invs
+        torch.cuda.empty_cache()
+
+
+def _shipped_ood(cols, invs, pairs, gpow, ext, dev):
+    """The shipped OOD kernel with its groups made once (ops/deep.py's
+    ``_ood`` without the per-call host work)."""
+    import torch
+
+    from ministark_tpu_torch.ops import build
+    from ministark_tpu_torch.ops import deep as kdeep
+
+    words = kdeep.ood_groups(cols, invs, pairs, ext)
+    ngroups = len(words) // kdeep.ood_record_words(ext)
+    recs = torch.tensor(words, dtype=torch.int64).to(dev)
+    n = gpow.shape[0]
+    chunks = kdeep.ood_chunks(n, ngroups)
+    slots = 3 if ext else 1
+    partial = torch.empty(chunks * slots * len(pairs), dtype=torch.int64,
+                          device=dev)
+    kernel = kdeep.KERNEL_OOD_EXT3 if ext else kdeep.KERNEL_OOD
+    name = "ms_ood_sums_ext3" if ext else "ms_ood_sums"
+
+    def run():
+        out = torch.empty(slots * len(pairs), dtype=torch.int64, device=dev)
+        kernel.launch(name, build.ptr(recs), build.i64(ngroups),
+                      build.ptr(gpow), build.ptr(partial), build.ptr(out),
+                      build.i64(n), build.i64(chunks), build.i64(len(pairs)))
+        return out.reshape(3, -1) if ext else out
+    return run
+
+
 def rpo_sweep(old_merge, new_merge, old_hash, new_hash, old_grind, new_grind,
               old_tree, digests, strided, ext3, rand, seed, record_variants):
     """Kernel G against the old one, each in turns with the others: "old"
@@ -473,6 +947,11 @@ def main() -> int:
     ap.add_argument("--paths", default="F,B,W,L,R,H")
     ap.add_argument("--inv-variants", action="store_true")
     ap.add_argument("--rpo-sweep", action="store_true")
+    ap.add_argument("--ood-variants", action="store_true")
+    ap.add_argument("--ood-staged", action="store_true")
+    ap.add_argument("--old-tree", default=None,
+                    help="a whole older tree (git archive): kernel E's old "
+                         "generated sources come from its ops/eval.py")
     args = ap.parse_args()
     paths = args.paths.split(",")
     import torch
@@ -765,6 +1244,13 @@ def main() -> int:
     if "sha256" in old:
         sha_ab(paths, old["sha256"], rand, stream, record, record_variants,
                dev)
+    if "deep" in old or args.old_tree:
+        ef_ab(paths, old, args.old_tree, rand, stream, record,
+              record_variants, dev)
+    if args.ood_variants:
+        ood_variants(paths, old_dir, rand, record_variants, dev)
+    if args.ood_staged:
+        ood_staged(paths, old_dir, rand, record_variants, dev)
 
     print(json.dumps({"card": card, "ab": results}), flush=True)
     return 0

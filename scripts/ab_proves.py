@@ -11,8 +11,10 @@ argument) and proves each of the workloads (default: ``fib``, ``bf``,
 ``hello``, ``fib_rpo`` and ``hello_rpo``, ``chip_smoke.workload``) three
 times in a row, the first cold (the first prove of all builds the
 kernels); prints one JSON line of the seconds, host clock around each
-prove ending in a synchronise, and each prove's "Proof of work" phase
-(host ms, under ``<workload>_pow_ms``), tagged with its second argument.  The
+prove ending in a synchronise, each prove's "Proof of work" phase (host
+ms, under ``<workload>_pow_ms``), its "DEEP composition" phase (device ms
+by CUDA events, ``<workload>_deep_ms``) and its peak device memory (GiB,
+``<workload>_peak_gib``), tagged with its second argument.  The
 workload ``lde`` is chip_smoke.py's 2^29-point coset LDE of a 2^27-row
 column (``Matrix.interpolate`` then ``evaluate``), timed in device ms by
 CUDA events.  Run the two trees in turns in one call (parent, change,
@@ -74,18 +76,24 @@ def main() -> int:
             out["lde_ms"] = lde_ms(torch)
             continue
         claim, trace, opts, _info = chip_smoke.workload(name)
-        times, pow_ms = [], []
+        times, pow_ms, deep_ms, peak = [], [], [], []
         for _ in range(3):
             phases: list = []
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             claim.prove(opts, trace, phases)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+            peak.append(torch.cuda.max_memory_allocated() / 2**30)
             pow_ms += [p["host_ms"] for p in phases
                        if p["phase"] == "Proof of work"]
+            deep_ms += [p["device_ms"] for p in phases
+                        if p["phase"] == "DEEP composition"]
         out[name] = times
         out[f"{name}_pow_ms"] = pow_ms
+        out[f"{name}_deep_ms"] = deep_ms
+        out[f"{name}_peak_gib"] = peak
         del claim, trace
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)

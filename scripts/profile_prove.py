@@ -8,8 +8,9 @@ then runs one more warm prove under ``torch.profiler`` (CPU and CUDA
 activities) and prints one JSON line: the wall time of the profiled prove,
 the device busy time (the union of the device events' intervals) and its
 share of the wall, the device time per kernel name (top 15, summed over
-launches), every hand-written kernel's device time and launches, and the
-hand-written kernels' share of the device time.  The
+launches), every hand-written kernel's device time and launches, the
+hand-written kernels' share of the device time, and each phase's device
+ms (CUDA events, profiler running).  The
 workloads are chip_smoke.py's own (``chip_smoke.workload``): fib at 2^24
 values (bench.py's options), ``programs/fibonacci.bf`` cut to ten numbers
 (2^20 rows) and ``programs/hello_world.bf``, both with the 96-bit options,
@@ -29,8 +30,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # symbols of the hand-written kernels (csrc/*.cu and the generated evaluator)
 OWN_KERNELS = ("inv_fp_kernel", "inv_ext3_kernel", "col_ntt_kernel",
                "col_ntt_pass_kernel", "transpose_kernel", "hash_rows_kernel",
-               "merge_kernel", "ms_eval_kernel", "deep_kernel",
-               "deep_ext3_kernel", "grind_kernel", "tree_tops_kernel")
+               "merge_kernel", "ms_eval_", "deep_kernel", "ood_kernel",
+               "ood_reduce_kernel", "grind_kernel", "tree_tops_kernel")
 
 
 def busy_ms(intervals) -> float:
@@ -57,8 +58,9 @@ def profile(torch, name) -> dict:
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
+        phases: list = []
         t0 = time.perf_counter()
-        claim.prove(opts, trace)
+        claim.prove(opts, trace, phases)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
@@ -77,6 +79,7 @@ def profile(torch, name) -> dict:
             "busy_share": busy / wall_ms, "device_events": len(dev),
             "device_ms_summed": device_ms,
             "own_kernels_share": own_ms / device_ms if device_ms else None,
+            "phase_device_ms": {p["phase"]: p["device_ms"] for p in phases},
             "top": [{"name": k[:90], "ms": v[0], "launches": v[1]}
                     for k, v in ranked[:15]],
             "own": [{"name": k[:90], "ms": v[0], "launches": v[1]}

@@ -5,8 +5,9 @@
 
 Compiles each ``ministark_tpu_torch/csrc/*.cu`` file and the constraint
 evaluators generated for the fib AIR (2^21 rows) and the brainfuck AIR
-(2^20 rows, one source per term group) with the port's nvcc flags plus
-``-Xptxas -v``, all in parallel, and prints ptxas's line for each kernel.
+(2^20 rows) with the port's nvcc flags plus ``-Xptxas -v``, all in
+parallel, and prints ptxas's line for each kernel and the seconds each
+source took to build.
 Needs nvcc (the CUDA toolkit); no card.  Writes into a temporary directory
 and leaves nothing behind.
 
@@ -29,6 +30,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -91,11 +93,10 @@ def main() -> int:
     jobs = {f: build._read(os.path.join(build.CSRC, f))
             for f in sorted(os.listdir(build.CSRC)) if f.endswith(".cu")}
     fib = Air(FibAirConfig, 1 << 21, Fp(0), ProofOptions(32, 4, 8, 8, 64))
-    jobs["eval_fib"] = teval._plan_for(fib)[1][0]
+    jobs["eval_fib"] = teval._plan_for(fib)[1]
     bf = Air(BrainfuckAirConfig, 1 << 20, BrainfuckClaim("", b"", b""),
              ProofOptions(19, 16, 20, 16, 16))
-    for g, src in enumerate(teval._plan_for(bf)[1]):
-        jobs[f"eval_bf_group{g}"] = src
+    jobs["eval_bf"] = teval._plan_for(bf)[1]
 
     with tempfile.TemporaryDirectory() as tmp:
         def compile_one(item):
@@ -105,8 +106,11 @@ def main() -> int:
                 f.write(text)
             cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v",
                    "-I", build.CSRC, "-o", src + ".so", src]
+            t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   timeout=900)
+            print(f"{name}: built in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
             listing = None
             if name in sass and proc.returncode == 0:
                 cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()),

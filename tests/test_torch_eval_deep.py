@@ -1,6 +1,8 @@
 """Constraint evaluation (kernel E) and the DEEP sum (kernel F): the port's
 plain versions and the host build of the generated evaluator against the
-JAX package's numpy references, on inputs from a fixed seed.
+JAX package's numpy references, and kernel F's DEEP math (csrc/deep.cuh)
+built by g++ with a host harness that runs the kernel's lanes, on inputs
+from a fixed seed.
 
 torch and the port are imported inside the tests, so collecting this file
 stays cheap in every pytest-xdist worker.
@@ -9,6 +11,7 @@ stays cheap in every pytest-xdist worker.
 import ctypes
 
 import numpy as np
+import pytest
 
 from ministark_tpu.air import Air as JaxAir
 from ministark_tpu.air import ProofOptions as JaxOptions
@@ -79,9 +82,8 @@ def test_generated_source_host_build_matches_plain():
 
     jair, x, trace, _ = _inputs(42)
     air = _port_air(jair)
-    plan, sources, _ = teval._plan_for(air)
-    assert len(sources) == 1  # an Fp AIR's terms form one group
-    source = sources[0]
+    plan, source, _ = teval._plan_for(air)
+    assert len(plan.groups) == 1  # an Fp AIR's terms form one group
     assert "__global__" in source and "ms_eval_host" in source
     n = x.shape[0]
     rng = np.random.default_rng(43)
@@ -96,16 +98,18 @@ def test_generated_source_host_build_matches_plain():
         if what == "exp":
             s[plan.slot[("exp", e)]] = e
     s = from_u64_numpy(s)
-    want = keval.eval_terms(plan, sources, air.ce_blowup_factor, tt, ext, tx,
+    want = keval.eval_terms(plan, source, air.ce_blowup_factor, tt, ext, tx,
                             per, inv, inv3, s)
     lib = build.build_host_library("eval_fib_check", source)
     lib.ms_eval_host.restype = None
-    lib.ms_eval_host.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64,
+    lib.ms_eval_host.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64,
                                                          ctypes.c_int]
-    out = torch.empty(n, dtype=torch.int64)
-    lib.ms_eval_host(*[t.data_ptr() for t in (tt, ext, tx, per, inv, inv3, s,
-                                              out)], n, 0)
-    assert torch.equal(out, want)
+    for groups in (0, 1):  # the one launch, and a launch a group
+        out = torch.empty(n, dtype=torch.int64)
+        part = torch.empty(n, dtype=torch.int64)
+        lib.ms_eval_host(*[t.data_ptr() for t in (tt, ext, tx, per, inv, inv3,
+                                                  s, part, out)], n, groups)
+        assert torch.equal(out, want)
 
 
 def test_deep_plain_matches_npfield_restatement():
@@ -135,3 +139,110 @@ def test_deep_plain_matches_npfield_restatement():
                      [from_u64_numpy(invs[w]) for w in which],
                      from_u64_numpy(s), from_u64_numpy(x))
     np.testing.assert_array_equal(to_u64_numpy(got), want)
+
+
+_DEEP_HARNESS = r"""
+#include <vector>
+#include "deep.cuh"
+
+template <class F>
+static void run(const int64_t* plan, const uint64_t* s, const uint64_t* x,
+                uint64_t* out, int64_t n, int lanes) {
+    typedef typename F::T T;
+    std::vector<unsigned char> mem(deep_staged_bytes<F>(plan[0], plan[1]));
+    DeepStaged<F> st = deep_staged<F>(plan, s, mem.data());
+    deep_stage_terms<F>(plan, st, 0, 1);
+    deep_stage_segs<F>(st, 0, 1);
+    for (int64_t i = 0; i < n; i++) {
+        T r = F::zero();
+        for (int lane = 0; lane < lanes; lane++)
+            r = F::add(r, deep_lane<F>(st, i, n, lane, lanes));
+        F::store(out, i, n, deep_finish<F>(st, r, x[i]));
+    }
+}
+
+extern "C" void h_deep(const int64_t* plan, const uint64_t* s,
+                       const uint64_t* x, uint64_t* out, int64_t n,
+                       int lanes, int ext) {
+    if (ext)
+        run<dp_fq3>(plan, s, x, out, n, lanes);
+    else
+        run<dp_fp>(plan, s, x, out, n, lanes);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def deep_lib():
+    from ministark_tpu_torch.ops import build
+
+    lib = build.build_host_library("deep_check", _DEEP_HARNESS)
+    lib.h_deep.restype = None
+    lib.h_deep.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64,
+                                                   ctypes.c_int, ctypes.c_int]
+    return lib
+
+
+def _deep_terms(ext, seed):
+    """Toy fib's DEEP terms (16 trace arguments at two points, a
+    composition column at a third; 512 points), or toy brainfuck's (49
+    trace arguments of 17 Fp and 9 Fq3 columns at two points, 16 Fq3
+    composition columns at a third; 1024 points): columns, inverse rows (a
+    view of one (3, ...) stack, so terms of a point share storage),
+    scalars and x."""
+    from ministark_tpu_torch.fields.convert import from_u64_numpy
+
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return from_u64_numpy(rng.integers(0, P, size=shape, dtype=np.uint64))
+
+    if not ext:
+        n, base = 512, rand(8, 512)
+        invs = rand(3, n)
+        cols = [base[c] for c in range(8) for _ in (0, 1)] + [rand(n)]
+        rows = [invs[t % 2] for t in range(16)] + [invs[2]]
+        return cols, rows, rand(2 * len(cols) + 2), rand(n)
+    n = 1024
+    base, extc, comp = rand(17, n), rand(9, 3, n), rand(16, 3, n)
+    invs = rand(3, 3, n)
+    cols, rows = [], []
+    for c in range(26):
+        for off in ((0,) if c in (2, 3, 6) else (0, 1)):
+            cols.append(base[c] if c < 17 else extc[c - 17])
+            rows.append(invs[off])
+    cols += [comp[k] for k in range(16)]
+    rows += [invs[2]] * 16
+    return cols, rows, rand(6 * len(cols) + 6), rand(n)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 8])
+@pytest.mark.parametrize("ext", [False, True])
+def test_deep_host_build_matches_plain(deep_lib, ext, lanes):
+    """Kernel F's DEEP math on the host: the plan ``ops.deep.deep_plan``
+    makes (terms grouped by inverse row, segments of one column kind), the
+    staged scalars and C_g, `lanes` lanes a point, then (A + B x): equal to
+    the plain version point for point."""
+    import torch
+
+    from ministark_tpu_torch.ops import deep as kdeep
+
+    cols, rows, s, x = _deep_terms(ext, 52 + lanes)
+    words, nseg = kdeep.deep_plan(cols, rows, lanes)
+    assert nseg >= (5 if ext else 3)  # three points; Fp and Fq3 apart
+    plan = torch.tensor(words, dtype=torch.int64)
+    n = x.shape[0]
+    out = torch.empty((3, n) if ext else (n,), dtype=torch.int64)
+    deep_lib.h_deep(plan.data_ptr(), s.data_ptr(), x.data_ptr(),
+                    out.data_ptr(), n, lanes, int(ext))
+    plain = (kdeep.deep_ext3_plain if ext else kdeep.deep_plain)(cols, rows,
+                                                                 s, x)
+    assert torch.equal(out, plain)
+
+
+def test_deep_lanes():
+    """Lanes a point: two for Fq3 transcripts, one for Fp ones."""
+    from ministark_tpu_torch.ops import deep as kdeep
+
+    assert kdeep.deep_lanes(True) == 2
+    assert kdeep.deep_lanes(False) == 1

@@ -1,8 +1,9 @@
 """Constraint evaluation over Fq3 (kernel E's Fq3 branch): the port's plain
-version and the g++ build of the generated per-group sources against the
-JAX package's numpy evaluator, on the brainfuck AIR with a random CE-domain
-trace and random Fq3 transcript scalars from a numpy seed.  Equality is
-exact (integer field arithmetic).
+version and the g++ build of the generated source against the JAX
+package's numpy evaluator, on the brainfuck AIR with a random CE-domain
+trace and random Fq3 transcript scalars from a numpy seed; the source's
+shared powers of X against Python's pow.  Equality is exact (integer field
+arithmetic).
 
 torch and the port are imported inside the tests, so collecting this file
 stays cheap in every pytest-xdist worker.
@@ -69,9 +70,9 @@ def _port(jair, challenges, coeffs):
 
 @pytest.fixture(scope="module", autouse=True)
 def host_builds():
-    """The g++ builds of the generated group sources, started before the
-    first test so that they compile while the evaluators run: (sources,
-    futures of the loaded libraries)."""
+    """The g++ build of the generated source, started before the first test
+    so that it compiles while the evaluators run: (source, future of the
+    loaded library)."""
     from ministark_tpu_torch import eval as teval
     from ministark_tpu_torch.air import Air, ProofOptions
     from ministark_tpu_torch.models.brainfuck import (BrainfuckAirConfig,
@@ -80,11 +81,10 @@ def host_builds():
 
     air = Air(BrainfuckAirConfig, 64, BrainfuckClaim(PROGRAM, b"", b"\x05"),
               ProofOptions(**OPTS))
-    sources = teval._plan_for(air)[1]
-    with ThreadPoolExecutor(max_workers=len(sources)) as ex:
-        yield sources, [
-            ex.submit(build.build_host_library, f"eval_bf_check{g}", s)
-            for g, s in enumerate(sources)]
+    source = teval._plan_for(air)[1]
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        yield source, ex.submit(build.build_host_library, "eval_bf_check",
+                                source)
 
 
 @pytest.mark.parametrize("trace_len", [64, 128])
@@ -108,10 +108,13 @@ def test_eval_ext3_matches_eval_composition_numpy(trace_len):
     np.testing.assert_array_equal(to_u64_numpy(got), want)
 
 
-def test_generated_ext3_sources_host_build_match_plain(host_builds):
-    """Each term group's generated source, built as host C++ by g++, adds
-    its terms into one output; the sum of all groups equals the plain
-    version point for point."""
+@pytest.mark.parametrize("groups", [0, 1])
+def test_generated_ext3_sources_host_build_match_plain(host_builds, groups):
+    """The source generated from the brainfuck DAG, built as host C++ by
+    g++, equals the plain version point for point: each group's part and
+    their sum (the one launch), and the groups added one after another
+    (the launches a group), each group's powers of X from the chain's y
+    and r."""
     import torch
 
     from ministark_tpu_torch import eval as teval
@@ -120,9 +123,9 @@ def test_generated_ext3_sources_host_build_match_plain(host_builds):
 
     jair, x, base, ext, challenges, coeffs = _inputs(64, 62)
     air, ch, hints, cc = _port(jair, challenges, coeffs)
-    plan, sources, _ = teval._plan_for(air)
-    assert sources == host_builds[0]
-    assert len(sources) == len(plan.groups) > 1
+    plan, source, _ = teval._plan_for(air)
+    assert source == host_builds[0]
+    assert len(plan.groups) > 1
     n = x.shape[0]
     rng = np.random.default_rng(63)
     n_fp = sum(1 for k in plan.inv_keys if plan.inv_kind[k] == "fp")
@@ -134,14 +137,74 @@ def test_generated_ext3_sources_host_build_match_plain(host_builds):
                 0, P, size=(len(plan.inv_keys) - n_fp, 3, n),
                 dtype=np.uint64)),
             keval.scalar_table(plan, ch, hints, cc, "cpu")]
-    want = keval.eval_terms(plan, sources, air.ce_blowup_factor, *args)
+    want = keval.eval_terms(plan, source, air.ce_blowup_factor, *args)
 
+    lib = host_builds[1].result()
     out = torch.empty((3, n), dtype=torch.int64)
-    for g, built in enumerate(host_builds[1]):
-        lib = built.result()
-        lib.ms_eval_host.restype = None
-        lib.ms_eval_host.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64,
-                                                             ctypes.c_int]
-        lib.ms_eval_host(*[t.data_ptr() for t in args], out.data_ptr(), n,
-                         int(g > 0))
+    part = torch.empty((len(plan.groups), 3, n), dtype=torch.int64)
+    lib.ms_eval_host.restype = None
+    lib.ms_eval_host.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64,
+                                                         ctypes.c_int]
+    lib.ms_eval_host(*[t.data_ptr() for t in args], part.data_ptr(),
+                     out.data_ptr(), n, groups)
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("trace_len", [64, 2048, 1 << 20])
+def test_source_is_one_for_every_trace_length(trace_len, host_builds):
+    """The degree adjustments' exponents stay out of the source: brainfuck
+    at 2^6, 2^11 and 2^20 rows generates the same text, and its shared
+    powers of X are nine, every x^e one of the forms the prologue takes."""
+    from ministark_tpu_torch import eval as teval
+    from ministark_tpu_torch.air import Air, ProofOptions
+    from ministark_tpu_torch.models.brainfuck import (BrainfuckAirConfig,
+                                                      BrainfuckClaim)
+
+    air = Air(BrainfuckAirConfig, trace_len,
+              BrainfuckClaim(PROGRAM, b"", b"\x05"), ProofOptions(**OPTS))
+    plan, source, _ = teval._plan_for(air)
+    assert source == host_builds[0]
+    assert len(plan.power_of) == len(plan.powers) == 9
+    for e, key in plan.power_of.items():
+        a, b = divmod(e, trace_len)
+        assert key == (("nm1", a) if b == trace_len - 1 else ("small", a, b))
+    assert not [v for what, v, _k in plan.scalars
+                if what == "exp" and v != trace_len]
+
+
+def test_shared_powers_match_pow(host_builds):
+    """The generated prologue's shared powers at 2^20 rows, from the g++
+    build, equal pow(x, e, P) for the nine brainfuck exponents at random x
+    (0 and 1 included)."""
+    import torch
+
+    from ministark_tpu_torch import eval as teval
+    from ministark_tpu_torch.air import Air, ProofOptions
+    from ministark_tpu_torch.fields.convert import from_u64_numpy, to_u64_numpy
+    from ministark_tpu_torch.models.brainfuck import (BrainfuckAirConfig,
+                                                      BrainfuckClaim)
+
+    rows = 1 << 20
+    air = Air(BrainfuckAirConfig, rows, BrainfuckClaim(PROGRAM, b"", b"\x05"),
+              ProofOptions(**OPTS))
+    plan = teval._plan_for(air)[0]
+    s = torch.zeros(max(plan.num_slots, 1), dtype=torch.int64)
+    s[plan.slot[("exp", rows)]] = rows
+    rng = np.random.default_rng(64)
+    xs = np.concatenate([np.array([0, 1, P - 1], dtype=np.uint64),
+                         rng.integers(0, P, size=61, dtype=np.uint64)])
+    m = xs.shape[0]
+    pw = torch.empty(len(plan.powers) * m, dtype=torch.int64)
+    lib = host_builds[1].result()
+    lib.ms_eval_powers_host.restype = None
+    lib.ms_eval_powers_host.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int64, ctypes.c_void_p]
+    xt = from_u64_numpy(xs)
+    lib.ms_eval_powers_host(xt.data_ptr(), s.data_ptr(), m, pw.data_ptr())
+    got = to_u64_numpy(pw).reshape(len(plan.powers), m)
+    assert sorted(plan.power_of) == sorted(
+        {0xf00001, 0xc00004, 0x50000b, 0xffffff, 0xf00000, 0x800007,
+         0xe00001, 0xc00003, 0x600009})
+    for e, key in plan.power_of.items():
+        k = plan.powers.index(key)
+        assert [int(v) for v in got[k]] == [pow(int(v), e, P) for v in xs]

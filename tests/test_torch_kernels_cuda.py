@@ -18,7 +18,8 @@ pytestmark = pytest.mark.cuda
 P = 0xFFFFFFFF00000001
 KERNELS = ["inv", "ntt", "transpose", "sha256", "eval", "deep", "inv_ext3",
            "sha256_ext3", "eval_ext3", "deep_ext3", "ntt_stage", "rpo256",
-           "rpo256_grind", "rpo256_tree", "sha256_grind", "sha256_tree"]
+           "rpo256_grind", "rpo256_tree", "sha256_grind", "sha256_tree",
+           "ood_sums", "ood_sums_ext3"]
 
 
 @pytest.fixture
@@ -341,7 +342,7 @@ def test_kernel_matches_plain_on_card(dev, kernel):
             air = Air(BrainfuckAirConfig, 64,
                       BrainfuckClaim("+.", b"", b"\x01"),
                       ProofOptions(9, 16, 0, 4, 16))
-        plan, sources, _ = teval._plan_for(air)
+        plan, source, _ = teval._plan_for(air)
         n = air.ce_domain().size
         n_fp = sum(1 for k in plan.inv_keys if plan.inv_kind[k] == "fp")
         nb = air.config.NUM_BASE_COLUMNS
@@ -355,9 +356,12 @@ def test_kernel_matches_plain_on_card(dev, kernel):
             if what == "exp":
                 args[-1][plan.slot[("exp", e)]] = e
         cb = air.ce_blowup_factor
-        _same(torch, keval.eval_terms(plan, sources, cb,
-                                      *[a.to(dev) for a in args]),
-              keval.eval_terms_plain(plan, cb, *args))
+        want = keval.eval_terms_plain(plan, cb, *args)
+        # every group in one launch, and a launch a group
+        for launch in ("grid", "groups"):
+            _same(torch, keval.eval_terms(plan, source, cb,
+                                          *[a.to(dev) for a in args],
+                                          launch=launch), want)
     elif kernel == "deep":
         from ministark_tpu_torch.ops import deep as kdeep
 
@@ -369,6 +373,19 @@ def test_kernel_matches_plain_on_card(dev, kernel):
                                 [v.to(dev) for v in invs], s.to(dev),
                                 x.to(dev)),
               kdeep.deep_plain(cols, invs, s, x))
+        # terms sharing inverse rows, 1 to 8 lanes a point, a grid-stride
+        # pass (more points than the blocks launched hold)
+        for T, n in ((17, 3000), (40, 1 << 19)):
+            cols = [_rand(n, 30 + t) for t in range(T)]
+            rows = _rand((3, n), 29)
+            invs = [rows[t % 3] for t in range(T)]
+            s, x = _rand(2 * T + 2, 28), _rand(n, 27)
+            want = kdeep.deep_plain(cols, invs, s, x)
+            dcols, drows = [c.to(dev) for c in cols], rows.to(dev)
+            for lanes in (1, 2, 8):
+                _same(torch, kdeep.deep(dcols, [drows[t % 3] for t in range(T)],
+                                        s.to(dev), x.to(dev), lanes=lanes),
+                      want)
     elif kernel == "inv_ext3":
         from ministark_tpu_torch.ops import inv as kinv
 
@@ -400,4 +417,38 @@ def test_kernel_matches_plain_on_card(dev, kernel):
                                      [v.to(dev) for v in invs], s.to(dev),
                                      x.to(dev)),
               kdeep.deep_ext3_plain(cols, invs, s, x))
+        # terms of both kinds sharing inverse rows, 1 to 8 lanes a point
+        for T, n in ((9, 3000), (33, 1 << 18)):
+            cols = [_rand(n, 40 + t) if t % 3 else _rand((3, n), 40 + t)
+                    for t in range(T)]
+            rows = _rand((3, 3, n), 39)
+            invs = [rows[t % 3] for t in range(T)]
+            s, x = _rand(6 * T + 6, 38), _rand(n, 37)
+            want = kdeep.deep_ext3_plain(cols, invs, s, x)
+            dcols, drows = [c.to(dev) for c in cols], rows.to(dev)
+            for lanes in (1, 4, 8):
+                _same(torch, kdeep.deep_ext3(
+                    dcols, [drows[t % 3] for t in range(T)], s.to(dev),
+                    x.to(dev), lanes=lanes), want)
+    elif kernel in ("ood_sums", "ood_sums_ext3"):
+        from ministark_tpu_torch.ops import deep as kdeep
+
+        ext = kernel == "ood_sums_ext3"
+        fn = kdeep.ood_sums_ext3 if ext else kdeep.ood_sums
+        plain = kdeep.ood_sums_ext3_plain if ext else kdeep.ood_sums_plain
+        # one point, points no chunk divides, several chunks; a column
+        # read by six points (more than a group holds); every pair in its
+        # own column and groups of the widest
+        for n, ncols, npts in ((1, 3, 2), (777, 12, 6), (1 << 16, 40, 3),
+                               (5000, 70, 4)):
+            cols = [_rand((3, n), 50 + c) if ext and c % 2 else
+                    _rand(n, 50 + c) for c in range(ncols)]
+            invs = _rand((npts, 3, n) if ext else (npts, n), 49)
+            gpow = _rand(n, 48)
+            pairs = [(j, 0) for j in range(npts)]
+            pairs += [((c * 7) % npts, c) for c in range(1, ncols)]
+            pairs += [((c + 1) % npts, c) for c in range(1, ncols, 3)]
+            _same(torch, fn([c.to(dev) for c in cols], invs.to(dev), pairs,
+                            gpow.to(dev)),
+                  plain(cols, invs, pairs, gpow))
     assert build.KERNELS[kernel].launches > before
