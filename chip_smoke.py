@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py
 
-Six main paths, each driven through the user's entry points: the fib
+Seven main paths, each driven through the user's entry points: the fib
 prove (Fp, SHA-256), the brainfuck proves of fibonacci.bf and hello_world
 (Fq3 extension field, SHA-256), the fully algebraic fib prove (RPO-256
 trees and coin), hello_world with RPO-256 trees and coin (Fq3, the device
-RPO grind), and a 2^29-point coset LDE (the multi-pass column NTT).  Phases, any failure exits non-zero:
+RPO grind), a 2^29-point coset LDE (the multi-pass column NTT), and the
+Rescue-Prime hash chain (Fp, SHA-256; eleven periodic columns, powers of
+trace sums).  Phases, any failure exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every hand-written kernel from ``ministark_tpu_torch/csrc`` and
-     the constraint evaluators generated for the fib AIR and the brainfuck
-     AIR (one source each) with nvcc, one process per source, all started
+     the constraint evaluators generated for the fib, brainfuck and Rescue
+     AIRs (one source each) with nvcc, one process per source, all started
      together;
   3. run each kernel against its plain PyTorch version on the card, once
      for each path that launches it, at that path's shapes: the nine fib
@@ -33,7 +35,10 @@ RPO grind), and a 2^29-point coset LDE (the multi-pass column NTT).  Phases, any
      hello_world's shapes, and the LDE's kernel B and transposes on both
      passes of its 2^27- and the first of its 2^29-point transform, and
      the multi-pass NTT on the second (and at n1 = 2^12 against kernel B
-     and its plain version, and at 2^16 on one and on 16 columns);
+     and its plain version, and at 2^16 on one and on 16 columns), and
+     the nine kernels of the Rescue path at its 2^18-row prove's shapes
+     (2^21-point LDE and CE domains: the 8-column composition LDE, the
+     4-column trace, the Rescue evaluator with its periodic inputs);
      integer field math, so the tolerance is exact equality;
      print the kernel's time, the plain version's, the bound (the least time the
      card could take) and, where one PyTorch call computes the same
@@ -46,8 +51,9 @@ RPO grind), and a 2^29-point coset LDE (the multi-pass column NTT).  Phases, any
      path's shapes it is compared on a 2^18-state sample of the same
      inputs (the line says so) while the kernel is timed at the full
      shape;
-  4. prove fib at 2^10 values and brainfuck "++>+++[<+>-]<." with the
-     golden-fixture options, and the fully algebraic fib at 2^7 values:
+  4. prove fib at 2^10 values, brainfuck "++>+++[<+>-]<." and the Rescue
+     chain of 4 links with the golden-fixture options, and the fully
+     algebraic fib at 2^7 values:
      the bytes must equal ``tests/golden/`` and every kernel of each path
      must have launched; prove and verify fib at 2^7 values with RPO-256
      trees and the SHA-256 coin;
@@ -63,14 +69,18 @@ RPO grind), and a 2^29-point coset LDE (the multi-pass column NTT).  Phases, any
      cold then warm;
   9. prove hello_world with RPO-256 trees and coin, 96-bit options, cold
      then warm (its 20-bit grind runs on the card);
- 10. a 2^29-point coset LDE of one 2^27-row column through
+ 10. prove the Rescue chain of 2^14 links (2^18 rows x 4 columns; the
+     chain on the host, timed) with RESCUE_OPTS (blowup 8, the least the
+     AIR takes), cold then warm, and time its periodic columns over the
+     CE domain on their own;
+ 11. a 2^29-point coset LDE of one 2^27-row column through
      ``Matrix.interpolate``/``evaluate``, checked exactly (the inverse
      transform gives the coefficients back; a column of 64 coefficients
      agrees with Horner's rule on the host at a few points);
- 11. print the card, the kernel table as one JSON line (one entry per
+ 12. print the card, the kernel table as one JSON line (one entry per
      kernel and path, with that path's launches), then the result.
 
-In phases 5-10 the counts of launches are reset just before the warm run
+In phases 5-11 the counts of launches are reset just before the warm run
 and read just after, with per-phase CUDA-event times (the warm prove's
 Proof of work phase printed on a line of its own) and peak device memory; the port's verifier must accept each proof (30 bits for fib, 96
 for brainfuck; on the host, in pure Python for RPO) and reject it with one
@@ -90,6 +100,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_FIB = os.path.join(ROOT, "tests", "golden", "fib_2e10.proof")
 GOLDEN_BF = os.path.join(ROOT, "tests", "golden", "brainfuck_2plus3.proof")
 GOLDEN_RPO = os.path.join(ROOT, "tests", "golden", "fib_2e7_rpo_full.proof")
+GOLDEN_RESCUE = os.path.join(ROOT, "tests", "golden", "rescue_4links.proof")
 PROGRAMS = os.path.join(ROOT, "programs")
 GOLDEN_BF_PROGRAM = "++>+++[<+>-]<."
 
@@ -97,6 +108,7 @@ FIB, BF = "fib_2e24", "bf_fibonacci_2e20"  # the SHA-256 paths' proves
 HELLO = "bf_hello_world"  # bench.py's latency line
 FIB_RPO, BF_RPO = "fib_rpo_2e24", "bf_hello_world_rpo"  # the RPO paths'
 LDE = "lde_2e29"
+RESCUE = "rescue_2e18"  # the Rescue hash chain, 2^14 links
 FIB_PATH = ("inv", "ntt", "transpose", "sha256", "eval", "deep", "ood_sums",
             "sha256_grind", "sha256_tree")
 BF_PATH = ("inv", "ntt", "transpose", "sha256", "inv_ext3", "sha256_ext3",
@@ -108,6 +120,8 @@ BF_RPO_PATH = ("inv", "ntt", "transpose", "inv_ext3", "eval_ext3",
                "deep_ext3", "ood_sums_ext3", "rpo256", "rpo256_grind",
                "rpo256_tree")
 LDE_PATH = ("ntt", "transpose", "ntt_stage")
+RESCUE_PATH = ("inv", "ntt", "transpose", "sha256", "eval", "deep",
+               "ood_sums", "sha256_grind", "sha256_tree")
 RPO_SAMPLE = 1 << 18  # states the plain RPO permutation is compared on
 SHA_SAMPLE = 1 << 18  # leaves and nonces the plain SHA-256 is compared on
 
@@ -254,6 +268,31 @@ def max_abs_err(torch, a, b) -> float:
     return float(max(abs(x % m - y % m) for x, y in zip(av, bv)))
 
 
+def chain_products(e: int) -> int:
+    """Products of the shortest addition chain for x^e: exact (a search)
+    up to e = 256, above it ceil(log2 e), a lower bound."""
+    if e > 256:
+        return (e - 1).bit_length()
+    best = [e.bit_length() + bin(e).count("1") - 2]  # the binary method
+
+    def search(chain):
+        if len(chain) - 1 >= best[0]:
+            return
+        top = chain[-1]
+        if top == e:
+            best[0] = len(chain) - 1
+            return
+        # even the doublings alone cannot reach e in the products left
+        if top << (best[0] - len(chain)) < e:
+            return
+        for s in sorted({a + b for a in chain for b in chain
+                         if top < a + b <= e}, reverse=True):
+            search(chain + [s])
+
+    search([1])
+    return best[0]
+
+
 def eval_ops_per_point(keval, plan) -> int:
     """32-bit integer operations per CE point of the generated evaluator:
     its DAG walked group by group with the same structural sharing, each
@@ -262,7 +301,9 @@ def eval_ops_per_point(keval, plan) -> int:
     prologue's products count once a point (log2 N squarings of the chain,
     each with the running product where one is kept, then the short
     chains), where a count of the plain square-and-multiply would take
-    bit_length + popcount products for every Pow in each group."""
+    bit_length + popcount products for every Pow in each group.  Any other
+    power (the Rescue AIR's x^7 of trace sums) counts its shortest
+    addition chain (x^7: 4 products)."""
     count = [0]
 
     def leaf_fn(leaf):
@@ -282,7 +323,7 @@ def eval_ops_per_point(keval, plan) -> int:
             return a
         if op == "pow":
             m = OPS_MUL3 if a == "fq" else OPS_MUL
-            count[0] += m * (exp.bit_length() + bin(exp).count("1"))
+            count[0] += m * chain_products(exp)
             return a
         if op == "add":
             count[0] += OPS_ADD * (3 if a == b == "fq" else 1)
@@ -445,9 +486,12 @@ def chunked(fn, x, step):
 
 
 def compare_fib_kernels(ck: Checker, fib_air_big, path, names):
-    """The fib kernels `names` at the 2^24-value prove's shapes, for
-    `path`: the SHA-256 fib prove, or the RPO one, whose LDE, constraint
-    evaluation and DEEP shapes are the same."""
+    """The Fp kernels `names` at the shapes of the prove of `fib_air_big`,
+    for `path`: the 2^24-value fib prove (SHA-256, or RPO, whose LDE,
+    constraint evaluation and DEEP shapes are the same), or the Rescue
+    prove (4 trace columns, 11 periodic inputs).  The NTT, transpose and
+    row hashes take the wider of its two LDEs (fib's 8-column trace,
+    Rescue's 8-column composition)."""
     torch, dev = ck.torch, ck.dev
     from ministark_tpu_torch import eval as teval
     from ministark_tpu_torch.fields.scalar import P
@@ -461,7 +505,8 @@ def compare_fib_kernels(ck: Checker, fib_air_big, path, names):
     from ministark_tpu_torch.ops import transpose as ktr
 
     rand = ck.rand
-    cols = 8
+    cols = fib_air_big.config.NUM_BASE_COLUMNS
+    lde_cols = max(cols, fib_air_big.ce_blowup_factor)
     lde_n = fib_air_big.lde_domain().size
     ce_n = fib_air_big.ce_domain().size
     n1, n2 = _split_n(lde_n)
@@ -476,11 +521,11 @@ def compare_fib_kernels(ck: Checker, fib_air_big, path, names):
     del a
 
     # B: both column passes of the 8-column coset LDE
-    x1 = rand(cols, n1, n2)
+    x1 = rand(lde_cols, n1, n2)
     tw1 = _stage_table(pow(lde.group_gen, n2, P), n1, dev)
     pre = powers(7, lde_n, dev).reshape(n1, n2)
     tmat = _twiddle_matrix(lde_n, lde.group_gen, dev)
-    x2 = rand(cols, n2, n1)
+    x2 = rand(lde_cols, n2, n1)
     tw2 = _stage_table(pow(lde.group_gen, n1, P), n2, dev)
     post = rand(n2, n1)
 
@@ -491,10 +536,11 @@ def compare_fib_kernels(ck: Checker, fib_air_big, path, names):
                  None),
         lambda: (lambda: kntt.col_ntt(x2, tw2, tmat=post),
                  lambda: kntt.col_ntt_plain(x2, tw2, tmat=post), None)]
-    butterflies = cols * lde_n * (lde_n.bit_length() - 1) // 2
+    butterflies = lde_cols * lde_n * (lde_n.bit_length() - 1) // 2
     ck.check("ntt", path, passes,
-             8 * (4 * cols * lde_n + 3 * lde_n + n1 // 2 + n2 // 2),
-             butterflies * (OPS_MUL + 2 * OPS_ADD) + 3 * cols * lde_n * OPS_MUL,
+             8 * (4 * lde_cols * lde_n + 3 * lde_n + n1 // 2 + n2 // 2),
+             butterflies * (OPS_MUL + 2 * OPS_ADD)
+             + 3 * lde_cols * lde_n * OPS_MUL,
              reps=2, plain_reps=2)
 
     # C: the six-step transpose of the same LDE; one torch call (a strided
@@ -502,12 +548,12 @@ def compare_fib_kernels(ck: Checker, fib_air_big, path, names):
     ck.check("transpose", path,
              part(lambda: ktr.transpose(x1), lambda: ktr.transpose_plain(x1),
                   lambda: x1.transpose(-1, -2).contiguous()),
-             16 * cols * lde_n, 0)
+             16 * lde_cols * lde_n, 0)
     del x1, x2, pre, tmat, post
 
     # D: LDE row digests (column-major view) and one tree level of merges
     if "sha256" in names:
-        m = rand(cols, lde_n)
+        m = rand(lde_cols, lde_n)
         left, right = (torch.randint(0, 256, (lde_n // 2, 32), generator=ck.g,
                                      device=dev, dtype=torch.int64)
                        .to(torch.uint8) for _ in range(2))
@@ -520,26 +566,27 @@ def compare_fib_kernels(ck: Checker, fib_air_big, path, names):
                               ksha.merge_plain(left, right)])
 
         ck.check("sha256", path, part(sha_kernel, sha_plain),
-                 8 * cols * lde_n + 32 * lde_n + 64 * (lde_n // 2)
+                 8 * lde_cols * lde_n + 32 * lde_n + 64 * (lde_n // 2)
                  + 32 * (lde_n // 2),
-                 lde_n * sha_ops(8 * cols) + lde_n // 2 * sha_ops(64), reps=2,
-                 plain_reps=2)
+                 lde_n * sha_ops(8 * lde_cols) + lde_n // 2 * sha_ops(64),
+                 reps=2, plain_reps=2)
         del m, left, right
 
-    # E: the fib AIR's generated evaluator over the CE domain
+    # E: the AIR's generated evaluator over the CE domain (fib: no
+    # periodic inputs; Rescue: eleven)
     plan, source, _denoms = teval._plan_for(fib_air_big)
     cb = fib_air_big.ce_blowup_factor
+    nper = len(plan.periodic)
     args = [rand(cols, ce_n), torch.zeros((0, 3, ce_n), dtype=torch.int64,
                                           device=dev),
-            fib_air_big.ce_domain().elements(dev),
-            torch.zeros((0, ce_n), dtype=torch.int64, device=dev),
+            fib_air_big.ce_domain().elements(dev), rand(nper, ce_n),
             rand(len(plan.inv_keys), ce_n),
             torch.zeros((0, 3, ce_n), dtype=torch.int64, device=dev),
             ck.scalar_table(plan)]
     ck.check("eval", path,
              part(lambda: keval.eval_terms(plan, source, cb, *args),
                   lambda: keval.eval_terms_plain(plan, cb, *args)),
-             8 * ce_n * (cols + 1 + len(plan.inv_keys) + 1),
+             8 * ce_n * (cols + 1 + nper + len(plan.inv_keys) + 1),
              ce_n * eval_ops_per_point(keval, plan))
     del args
 
@@ -1089,6 +1136,19 @@ def compare_lde_kernels(ck: Checker):
 # fri_folding_factor, fri_max_remainder_coeffs)
 FIB_OPTS = (32, 4, 8, 8, 64)    # bench.py's fib options
 BF_OPTS = (19, 16, 20, 16, 16)  # brainfuck's 96-bit options
+# fib's options with the blowup raised to 8, the least the Rescue AIR takes
+# (its constraints have degree 8 N): 2^21-point LDE and CE domains
+RESCUE_OPTS = (32, 8, 8, 8, 64)
+RESCUE_LINKS = 1 << 14  # 2^18 rows
+
+
+def rescue_seed() -> tuple[int, int]:
+    """The Rescue chain's seed (s0, s1), made from a fixed integer: two
+    field elements (63-bit values, below the Goldilocks prime)."""
+    import random
+
+    rng = random.Random(20260418)
+    return rng.getrandbits(63), rng.getrandbits(63)
 
 
 def rpo_claims():
@@ -1123,7 +1183,9 @@ def workload(name: str):
                    eleven '+' to ten (2^20 rows), BF_OPTS;
       "hello"      ``programs/hello_world.bf``, BF_OPTS;
       "fib_rpo"    "fib" with RPO-256 trees and coin;
-      "hello_rpo"  "hello" with RPO-256 trees and coin.
+      "hello_rpo"  "hello" with RPO-256 trees and coin;
+      "rescue"     the Rescue chain of 2^14 links from ``rescue_seed()``
+                   (2^18 rows x 4 columns), RESCUE_OPTS.
     Returns (claim, trace, options, info); info holds the host seconds that
     made the trace and, for brainfuck, the rows and the program's output."""
     import torch
@@ -1134,6 +1196,16 @@ def workload(name: str):
     from ministark_tpu_torch.models.fib import FibClaim, gen_trace
 
     fib_rpo, _, bf_rpo = rpo_claims()
+    if name == "rescue":
+        from ministark_tpu_torch.models.rescue import RescueClaim
+        from ministark_tpu_torch.models.rescue import gen_trace as rescue_trace
+
+        seed = rescue_seed()
+        t0 = time.perf_counter()
+        trace, (d0, d1) = rescue_trace(seed, RESCUE_LINKS)
+        torch.cuda.synchronize()
+        return RescueClaim(*seed, d0.v, d1.v), trace, ProofOptions(
+            *RESCUE_OPTS), {"trace_gen_s": time.perf_counter() - t0}
     if name in ("fib", "fib_rpo"):
         t0 = time.perf_counter()
         trace = gen_trace(1 << 24)
@@ -1222,6 +1294,20 @@ def verify_and_tamper(claim, data, fp, fq, bits, what):
     return verify_s
 
 
+def periodic_ms(torch, claim, opts, trace) -> float:
+    """Device ms of the constraint evaluation's periodic columns alone: each
+    of the AIR's Periodic leaves over the CE domain, as
+    ``eval.eval_composition`` computes them (plain torch), the mean of
+    three runs after one."""
+    from ministark_tpu_torch import eval as teval
+
+    air = claim.build_air(trace.base_columns().num_rows, opts)
+    plan = teval._plan_for(air)[0]
+    x = air.ce_domain().elements(trace.base_columns().device)
+    return time_ms(torch, lambda: [teval.periodic_values(p, x, air.trace_len)
+                                   for p in plan.periodic], 3)
+
+
 def lde_2e29(torch, build, ck):
     """A one-column 2^29-point coset LDE (blowup 4 over a 2^27-row trace
     domain) through Matrix.interpolate/evaluate; its second column pass
@@ -1296,12 +1382,16 @@ def main() -> int:
             BrainfuckAirConfig, BrainfuckClaim, BrainfuckTrace, simulate)
         from ministark_tpu_torch.models.fib import (FibAirConfig, FibClaim,
                                                     gen_trace)
+        from ministark_tpu_torch.models.rescue import (RescueAirConfig,
+                                                       RescueClaim)
+        from ministark_tpu_torch.models.rescue import (
+            gen_trace as rescue_trace)
         from ministark_tpu_torch.ops import (build, deep, eval, inv, ntt,  # noqa: F401
                                             rpo256, sha256, transpose)
         import ministark_tpu_torch.ops.pow  # noqa: F401
     except ImportError as e:
         fail(f"the port is not importable beside this script: {e}")
-    for path in (GOLDEN_FIB, GOLDEN_BF, GOLDEN_RPO, PROGRAMS):
+    for path in (GOLDEN_FIB, GOLDEN_BF, GOLDEN_RPO, GOLDEN_RESCUE, PROGRAMS):
         if not os.path.exists(path):
             fail(f"missing {path}")
     for mod in ("jax", "ministark_tpu"):
@@ -1320,6 +1410,9 @@ def main() -> int:
     bf_golden_opts = ProofOptions(num_queries=9, lde_blowup_factor=16,
                                   grinding_factor=0, fri_folding_factor=4,
                                   fri_max_remainder_coeffs=16)
+    rescue_golden_opts = ProofOptions(num_queries=8, lde_blowup_factor=8,
+                                      grinding_factor=4, fri_folding_factor=4,
+                                      fri_max_remainder_coeffs=16)
 
     # -- phase 2: build ------------------------------------------------------
     # The generated sources do not depend on the trace length (the trace
@@ -1329,13 +1422,16 @@ def main() -> int:
     fib_air_big = Air(FibAirConfig, 1 << 21, Fp(0), ProofOptions(*FIB_OPTS))
     bf_air_big = Air(BrainfuckAirConfig, 1 << 20,
                      BrainfuckClaim("", b"", b""), ProofOptions(*BF_OPTS))
+    rescue_air_big = Air(RescueAirConfig, RESCUE_LINKS * 16, (0, 0, 0, 0),
+                         ProofOptions(*RESCUE_OPTS))
     by_file = {}  # kernels that share a source file share its library
     for k in build.KERNELS.values():
         if k.source:
             by_file.setdefault(k.source, k)
     jobs = [(k, None) for k in by_file.values()]
     jobs += [(build.KERNELS["eval"], teval._plan_for(fib_air_big)[1]),
-             (build.KERNELS["eval_ext3"], teval._plan_for(bf_air_big)[1])]
+             (build.KERNELS["eval_ext3"], teval._plan_for(bf_air_big)[1]),
+             (build.KERNELS["eval"], teval._plan_for(rescue_air_big)[1])]
     with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
         list(ex.map(lambda j: j[0].build(j[1]), jobs))
     print(f"build: {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s",
@@ -1368,6 +1464,11 @@ def main() -> int:
     compare_tree(ck, BF_RPO, hello_n, hello_n)
     torch.cuda.empty_cache()
     compare_lde_kernels(ck)
+    torch.cuda.empty_cache()
+    compare_fib_kernels(ck, rescue_air_big, RESCUE, RESCUE_PATH)
+    rescue_n = rescue_air_big.lde_domain().size
+    compare_sha_grind(ck, RESCUE, RESCUE_OPTS[2])
+    compare_tree(ck, RESCUE, rescue_n, min(rescue_n, SHA_SAMPLE), sha=True)
     torch.cuda.empty_cache()
 
     # -- phase 4: the golden proofs ------------------------------------------
@@ -1411,6 +1512,18 @@ def main() -> int:
     claim = fib_rpo_trees(trace.last_value())
     verify_and_tamper(claim, claim.prove(rpo_opts, trace).to_bytes(Fp), Fp,
                       Fp, 8, "RPO-tree SHA-coin fib 2^7")
+
+    reset_counts(build)
+    trace, (d0, d1) = rescue_trace((7, 8), 4)
+    claim = RescueClaim(7, 8, d0.v, d1.v)
+    data = claim.prove(rescue_golden_opts, trace).to_bytes(Fp)
+    with open(GOLDEN_RESCUE, "rb") as f:
+        if data != f.read():
+            fail("the Rescue proof differs from "
+                 "tests/golden/rescue_4links.proof")
+    counts = read_counts(build, RESCUE_PATH, "the golden Rescue prove")
+    print(f"golden Rescue 4-link proof: byte-identical ({len(data)} bytes); "
+          f"launches {counts}", flush=True)
 
     # -- phase 5: the 2^24-value fib prove -------------------------------------
     claim, trace, opts, info = workload("fib")
@@ -1474,7 +1587,23 @@ def main() -> int:
     del trace, claim, proof
     torch.cuda.empty_cache()
 
-    # -- phase 10: the 2^29-point LDE -------------------------------------------
+    # -- phase 10: the Rescue chain, 2^14 links, 2^18 rows ---------------------
+    claim, trace, opts, info = workload("rescue")
+    print(f"{RESCUE}: the chain of {RESCUE_LINKS} links on the host "
+          f"{info['trace_gen_s']:.3f} s", flush=True)
+    proof, rescue = prove_timed(torch, build, claim, opts, trace,
+                                RESCUE_PATH, "the Rescue prove")
+    data = proof.to_bytes(Fp)
+    rescue["verify_s"] = verify_and_tamper(claim, data, Fp, Fp, 30,
+                                           "Rescue 2^18")
+    rescue["periodic_ms"] = periodic_ms(torch, claim, opts, trace)
+    print(json.dumps({RESCUE: {"card": card, **info,
+                               "proof_bytes": len(data), **rescue}}),
+          flush=True)
+    del trace, claim, proof
+    torch.cuda.empty_cache()
+
+    # -- phase 11: the 2^29-point LDE -------------------------------------------
     lde = lde_2e29(torch, build, ck)
 
     # one entry per kernel and path: checked at that path's shapes, with
@@ -1485,7 +1614,8 @@ def main() -> int:
             (HELLO, BF_PATH, hello["launches"]),
             (FIB_RPO, FIB_RPO_PATH, fib_rpo_run["launches"]),
             (BF_RPO, BF_RPO_PATH, hello_rpo["launches"]),
-            (LDE, LDE_PATH, lde["launches"])):
+            (LDE, LDE_PATH, lde["launches"]),
+            (RESCUE, RESCUE_PATH, rescue["launches"])):
         for name in names:
             k = build.KERNELS[name]
             src = (f"ministark_tpu_torch/csrc/{k.source}" if k.source

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .air import compose_constraints
 from .expression import (
     Challenge,
     CompositionCoeff,
@@ -149,6 +150,13 @@ def periodic_values(leaf, x, trace_len: int):
     return acc
 
 
+def _x_pow_exps(terms) -> list[int]:
+    """The exponents of the terms' powers of X, in walk order."""
+    return [node.exp for t in terms for node in t.postorder_unique()
+            if node.op == "pow" and node.a.op == "leaf"
+            and isinstance(node.a.leaf, X)]
+
+
 _PLAN_CACHE: dict = {}
 
 
@@ -167,8 +175,17 @@ def _plan_for(air):
                 denom_by_key.setdefault(k, node.b)
         inv_kind = {k: keval.expr_kind(d, nb, ext)
                     for k, d in denom_by_key.items()}
-        plan = keval.build_plan(_top_sum_terms(expr), key_memo, nb, ext,
-                                inv_kind, air.trace_len)
+        terms = _top_sum_terms(expr)
+        # the powers of X as linear functions of N: the same AIR at 2N
+        n2 = 2 * air.trace_len
+        twice = compose_constraints(n2, air.config.constraints(n2)).expr
+        period = max((p.interval_size for p in expr.leaves()
+                      if isinstance(p, Periodic)), default=1)
+        keys = keval.power_keys(_x_pow_exps(terms),
+                                _x_pow_exps(_top_sum_terms(twice)),
+                                air.trace_len, period)
+        plan = keval.build_plan(terms, key_memo, nb, ext, inv_kind,
+                                air.trace_len, keys)
         source = keval.generate_source(plan, air.ce_blowup_factor)
         _PLAN_CACHE[key] = (plan, source, denom_by_key)
     return _PLAN_CACHE[key]

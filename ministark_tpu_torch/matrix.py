@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .fields import device as fd
+from .fields.convert import to_u64_numpy
 from .fields.scalar import Fp
 from .ntt import Domain, bit_reverse_index
 
@@ -49,6 +50,10 @@ class Matrix:
     @property
     def device(self):
         return self.values.device
+
+    def to_ints(self) -> np.ndarray:
+        """The values on the host as numpy uint64, the same shape."""
+        return to_u64_numpy(self.values)
 
     def interpolate(self, domain: Domain):
         """Evaluations over `domain` -> coefficients (per-column iNTT)."""

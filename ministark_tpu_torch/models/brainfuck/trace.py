@@ -10,18 +10,22 @@ scan (scan.py).
 
 Permutation initials: the reference draws them from ``ark_std::test_rng()``
 (trace.rs:82-84), a fixed ChaCha12 stream replicated byte-exactly by
-``ark_rng``, so the proofs are bit-compatible with the reference's.
+``ark_rng``, so the proofs are bit-compatible with the reference's.  Set
+MINISTARK_TPU_BF_INITIALS=fixed to use the JAX package's fixed public
+constants instead (either choice is sound: the cross-table terminal
+constraints compare running products seeded with the SAME initial).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
 
 from ...fields import device as fd
-from ...fields.scalar import Fq3
+from ...fields.scalar import Fq3, P
 from ...matrix import Matrix, MatrixExt3
 from ...scan import affine_scan_ext3
 from ...stark import Trace
@@ -29,14 +33,26 @@ from . import tables as T
 from .vm import OP_READ, OP_WRITE
 
 
-@functools.lru_cache(maxsize=1)
-def perm_initials() -> tuple[Fq3, Fq3]:
-    """(instr_initial, mem_initial): the reference's two
-    ``Fq3::rand(ark_std::test_rng())`` draws (trace.rs:82-84)."""
+@functools.lru_cache(maxsize=4)
+def _perm_initials_for(mode: str | None) -> tuple[Fq3, Fq3]:
+    if mode == "fixed":
+        return (
+            Fq3(0x6D696E69737461726B % P, 0x747075_1,
+                0x696E7374725F696E6974 % P),
+            Fq3(0x6D656D5F696E6974 % P, 0x747075_2, 0x6272665F6D656D % P),
+        )
     from ...ark_rng import rand_fq3, test_rng
 
     rng = test_rng()
     return rand_fq3(rng), rand_fq3(rng)
+
+
+def perm_initials() -> tuple[Fq3, Fq3]:
+    """(instr_initial, mem_initial): the reference's two
+    ``Fq3::rand(ark_std::test_rng())`` draws (trace.rs:82-84), or the fixed
+    constants under MINISTARK_TPU_BF_INITIALS=fixed, read on each trace
+    build."""
+    return _perm_initials_for(os.environ.get("MINISTARK_TPU_BF_INITIALS"))
 
 
 class BrainfuckTrace(Trace):

@@ -30,14 +30,19 @@ host loop lets g++ build the same code for the CPU tests.
 
 Powers of X.  The degree adjustments x^e grow with the trace length N:
 at N = 2^20 brainfuck's are e = a N + b with a < 16 and b < 12, or b =
-N - 1.  One chain of log2 N squarings gives y = x^N (and, where some b =
-N - 1, the running product r = x^(N - 1)): before the launches a group, a
+N - 1; a periodic column of interval d adds multiples of N/d (the Rescue
+AIR's e = N + N/16 + 5).  Each exponent is read as a linear function of
+N from the AIR's composition at N and at 2N (``power_keys``), so that
+its form, and with it the source, does not depend on N.  One chain of
+log2 N squarings gives y = x^N (and, where some e = a N + N - 1, the
+running product r = x^(N - 1), or where some e = a N + c N/d + b, r =
+x^(N/d), the chain's value as it passes): before the launches a group, a
 pass of its own computes it once a point; in the one launch each group
 computes it (at 2^15 points that ran faster than a third launch).  Each
-group then takes its powers as y^a x^b (or y^a r) by short chains with a
-and b in the source; N itself sits in the scalar table, so one compiled
-kernel serves every trace length.  Any other power keeps a runtime
-exponent from the table (``gl_pow``).
+group then takes its powers as y^a x^b, y^a r or y^a r^c x^b by short
+chains with a, b and c in the source; N itself sits in the scalar table,
+so one compiled kernel serves every trace length.  Any other power keeps
+a runtime exponent from the table (``gl_pow``).
 
 Bound on the card: integer operations for both AIRs (chip_smoke.py's
 model, which counts the powers of X once a point).  Design: every input
@@ -152,29 +157,55 @@ class Plan:
     trace_len: int | None = None
     powers: list = field(default_factory=list)  # shared powers of X, by key
     power_of: dict = field(default_factory=dict)  # exponent -> its key
+    period: int | None = None  # d where r = x^(N/d) (the "per" keys' d)
 
 
 SMALL_POW = 32  # a and b of a shared power x^(a N + b) stay below this
 
 
-def power_key(e: int, trace_len: int):
-    """The shared-prologue key of x^e at trace length N: ("nm1", a) for e =
-    a N + N - 1, ("small", a, b) for e = a N + b with a, b < SMALL_POW;
-    None for a power left to a runtime exponent."""
-    a, b = divmod(e, trace_len)
-    if a >= SMALL_POW:
-        return None
-    if b == trace_len - 1:
-        return ("nm1", a)
-    return ("small", a, b) if b < SMALL_POW else None
+def power_keys(exps, exps_2n, trace_len: int, period: int = 1) -> dict:
+    """Shared-prologue keys of the powers of X (exponent -> key), read as
+    linear functions of N, e = alpha N + beta with alpha d an integer (d =
+    `period`, the AIR's largest periodic interval, 1 without one): `exps`
+    are the exponents in walk order at N = `trace_len`, `exps_2n` the same
+    nodes' at 2N.  ("small", a, b) for e = a N + b, ("nm1", a) for e = a N
+    + N - 1, ("per", a, c, b, d) for e = a N + c N/d + b with 0 < c < d;
+    a, b < SMALL_POW.  The keys do not depend on N, so neither does the source.
+    An exponent of any other form, or whose node has no one twin at 2N, is
+    left out (a runtime exponent); so are the "per" keys where an "nm1"
+    key needs r."""
+    n, d = trace_len, period
+    twin: dict = {}
+    for e, e2 in zip(exps, exps_2n):
+        twin.setdefault(e, set()).add(e2)
+    keys = {}
+    for e, e2s in twin.items():
+        if len(e2s) != 1 or len(exps) != len(exps_2n):
+            continue
+        slope = next(iter(e2s)) - e  # alpha N
+        if slope < 0 or (slope * d) % n:
+            continue
+        a, c = divmod(slope * d // n, d)
+        b = e - slope
+        if c == 0 and 0 <= b < SMALL_POW and a < SMALL_POW:
+            keys[e] = ("small", a, b)
+        elif c == 0 and b == -1 and 0 < a <= SMALL_POW:
+            keys[e] = ("nm1", a - 1)
+        elif c and 0 <= b < SMALL_POW and a < SMALL_POW:
+            keys[e] = ("per", a, c, b, d)
+    if any(k[0] == "nm1" for k in keys.values()):
+        keys = {e: k for e, k in keys.items() if k[0] != "per"}
+    return keys
 
 
 def build_plan(terms, key_memo, num_base: int, fq_is_ext: bool = False,
                inv_kind: dict | None = None,
-               trace_len: int | None = None) -> Plan:
+               trace_len: int | None = None,
+               keys: dict | None = None) -> Plan:
     """Assign every leaf to an input vector or a scalar-table slot.  Fp and
     Fq3 inverse inputs are numbered apart (two input stacks).  With the
-    trace length, powers of X go to the shared prologue (``power_key``)."""
+    trace length, the powers of X that `keys` (``power_keys``) names go to
+    the shared prologue."""
     rewritten = [_rewrite_divs(t, key_memo) for t in terms]
     step = GROUP_SIZE if fq_is_ext else max(len(rewritten), 1)
     groups = [(g, min(g + step, len(rewritten)))
@@ -229,12 +260,13 @@ def build_plan(terms, key_memo, num_base: int, fq_is_ext: bool = False,
             key = None
             if (trace_len and node.a.op == "leaf"
                     and isinstance(node.a.leaf, X)):
-                key = power_key(node.exp, trace_len)
+                key = (keys or {}).get(node.exp)
             if key is None:
                 raw.append(node.exp)
             elif node.exp not in plan.power_of:
                 plan.power_of[node.exp] = key
     plan.powers = sorted(set(plan.power_of.values()))
+    plan.period = next((k[4] for k in plan.powers if k[0] == "per"), None)
     if _chain(plan)[0]:
         raw.insert(0, trace_len)
     for e in raw:
@@ -343,15 +375,19 @@ def _pow_var(base: str, k: int, memo: dict, emit) -> str:
 
 
 def _chain(plan: Plan) -> tuple[bool, bool]:
-    """(whether the powers need y = x^N, whether also r = x^(N - 1))."""
+    """(whether the powers need the chain, y = x^N and r, whether r is the
+    running product x^(N - 1), a product a squaring; else r is x^(N/d)
+    where a "per" power needs it, or 1)."""
     running = any(k[0] == "nm1" for k in plan.powers)
-    return running or any(k[1] for k in plan.powers), running
+    return (running or plan.period is not None
+            or any(k[1] for k in plan.powers)), running
 
 
 def _chain_source(plan: Plan) -> str:
     """The body of ms_eval_chain: y = x^N by log2 N squarings, N from the
     scalar table, and where a power needs it the running product r =
-    x^(N - 1) (one more product a squaring)."""
+    x^(N - 1) (one more product a squaring) or r = x^(N/d), the chain's
+    value where m = d."""
     chain, running = _chain(plan)
     if not chain:
         return "    (void)s;\n    *y = x;\n    *r = 1;"
@@ -360,6 +396,8 @@ def _chain_source(plan: Plan) -> str:
              f"    for (uint64_t m = s[{slot}]; m > 1; m >>= 1) {{  // N"]
     if running:
         lines.append("        rr = gl_mul_cc_lazy(rr, yy);")
+    elif plan.period is not None:
+        lines.append(f"        if (m == {plan.period}) rr = yy;  // x^(N/d)")
     lines += ["        yy = gl_mul_cc_lazy(yy, yy);", "    }",
               "    *y = gl_canon(yy);", "    *r = gl_canon(rr);"]
     return "\n".join(lines)
@@ -376,16 +414,22 @@ def _powers_source(plan: Plan, ks) -> tuple[str, int]:
         lines.append(f"    const uint64_t {name} = gl_mul_cc({a}, {b});")
         return name
 
-    xs, ys = {1: "x"}, {1: "y"}
+    xs, ys, rs = {1: "x"}, {1: "y"}, {1: "r"}
     for k in ks:
         key = plan.powers[k]
         if key[0] == "nm1":
             parts = [_pow_var("y", key[1], ys, emit), "r"]
+        elif key[0] == "per":
+            parts = [_pow_var("y", key[1], ys, emit),
+                     _pow_var("r", key[2], rs, emit),
+                     _pow_var("x", key[3], xs, emit)]
         else:
             parts = [_pow_var("y", key[1], ys, emit),
                      _pow_var("x", key[2], xs, emit)]
         parts = [v for v in parts if v != "1ULL"] or ["1ULL"]
-        value = parts[0] if len(parts) == 1 else emit(*parts)
+        value = parts[0]
+        for v in parts[1:]:
+            value = emit(value, v)
         lines.append(f"    pw[{k}] = {value};")
     return "\n".join(lines), count[0]
 
@@ -512,7 +556,8 @@ def generate_source(plan: Plan, ce_blowup: int) -> str:
 #define MS_EVAL_POWERS {max(len(plan.powers), 1)}
 #define MS_EVAL_PLANES {planes}
 
-// y = x^N and r = x^(N - 1) (N, the trace length, from the table)
+// y = x^N, and r = x^(N - 1) or x^(N/d) where a power reads it (N, the
+// trace length, from the table)
 GL_HD void ms_eval_chain(uint64_t x, const uint64_t* __restrict__ s,
                          uint64_t* y, uint64_t* r) {{
 {_chain_source(plan)}

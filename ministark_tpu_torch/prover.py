@@ -29,9 +29,13 @@ from .utils.timer import Timer
 
 
 def default_prove(stark, options: ProofOptions, witness,
-                  phase_log: list | None = None) -> Proof:
+                  phase_log: list | None = None,
+                  validate: bool = False) -> Proof:
     """Prove on the device of the witness's trace.  `phase_log`, when
-    given, receives one {"phase", "host_ms", "device_ms"} record per phase."""
+    given, receives one {"phase", "host_ms", "device_ms"} record per phase.
+    `validate` checks every constraint on the trace (``debug``) after the
+    trace commitments and raises ``ConstraintViolation`` on the first that
+    fails."""
     hashfn = stark.merkle_hash  # the reference's MerkleTree associated type
     trace = stark.generate_trace(witness)
     base_trace = trace.base_columns()
@@ -69,6 +73,10 @@ def default_prove(stark, options: ProofOptions, witness,
             ext_lde = ext_polys.evaluate(lde_dom)
             ext_tree = merkle.commit_matrix_ext3(ext_lde.values, hashfn)
             channel.commit_extension_trace(ext_tree.root())
+
+    if validate:
+        stark.validate_constraints(air, challenges, hints, base_trace,
+                                   ext_trace)
 
     # -- phase 3: composition trace (src/prover.rs:78-131) -------------------
     with timer("Constraint evaluation"):

@@ -89,10 +89,18 @@ class Stark:
         return Air(self.air_config, trace_len, self.get_public_inputs(), options)
 
     def prove(self, options: ProofOptions, witness,
-              phase_log: list | None = None):
+              phase_log: list | None = None, validate: bool = False):
         from .prover import default_prove
-        return default_prove(self, options, witness, phase_log)
+        return default_prove(self, options, witness, phase_log, validate)
 
     def verify(self, proof, required_security_bits: int):
         from .verifier import default_verify
         return default_verify(self, proof, required_security_bits)
+
+    def validate_constraints(self, air, challenges, hints, base_trace,
+                             extension_trace):
+        """Full per-row constraint check on the trace domain (the reference
+        stubs this out, src/debug.rs); opt-in via prove(..., validate=True)."""
+        from .debug import validate_constraints
+        validate_constraints(air, challenges, hints, base_trace,
+                             extension_trace)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of one warm prove goes, on one GPU.
 
-    python3 scripts/profile_prove.py [fib|bf|hello|fib_rpo|hello_rpo ...]
+    python3 scripts/profile_prove.py [fib|bf|hello|fib_rpo|hello_rpo|rescue ...]
 
 For each workload (default: all three) it proves once cold and twice warm,
 then runs one more warm prove under ``torch.profiler`` (CPU and CUDA
@@ -15,7 +15,8 @@ workloads are chip_smoke.py's own (``chip_smoke.workload``): fib at 2^24
 values (bench.py's options), ``programs/fibonacci.bf`` cut to ten numbers
 (2^20 rows) and ``programs/hello_world.bf``, both with the 96-bit options,
 and the same fib and hello_world with RPO-256 trees and coin (``fib_rpo``,
-``hello_rpo``; not in the default set).  Needs a card.
+``hello_rpo``), and the Rescue hash chain of 2^14 links (2^18 rows,
+``rescue``); these three are not in the default set.  Needs a card.
 """
 
 from __future__ import annotations

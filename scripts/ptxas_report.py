@@ -4,8 +4,8 @@
     python3 scripts/ptxas_report.py [--sass FILE.cu,...] [--sass-dir DIR]
 
 Compiles each ``ministark_tpu_torch/csrc/*.cu`` file and the constraint
-evaluators generated for the fib AIR (2^21 rows) and the brainfuck AIR
-(2^20 rows) with the port's nvcc flags plus ``-Xptxas -v``, all in
+evaluators generated for the fib AIR (2^21 rows), the brainfuck AIR
+(2^20 rows) and the Rescue AIR (2^18 rows) with the port's nvcc flags plus ``-Xptxas -v``, all in
 parallel, and prints ptxas's line for each kernel and the seconds each
 source took to build.
 Needs nvcc (the CUDA toolkit); no card.  Writes into a temporary directory
@@ -88,6 +88,7 @@ def main() -> int:
     from ministark_tpu_torch.models.brainfuck import (BrainfuckAirConfig,
                                                       BrainfuckClaim)
     from ministark_tpu_torch.models.fib import FibAirConfig
+    from ministark_tpu_torch.models.rescue import RescueAirConfig
     from ministark_tpu_torch.ops import build
 
     jobs = {f: build._read(os.path.join(build.CSRC, f))
@@ -97,6 +98,9 @@ def main() -> int:
     bf = Air(BrainfuckAirConfig, 1 << 20, BrainfuckClaim("", b"", b""),
              ProofOptions(19, 16, 20, 16, 16))
     jobs["eval_bf"] = teval._plan_for(bf)[1]
+    rescue = Air(RescueAirConfig, 1 << 18, (0, 0, 0, 0),
+                 ProofOptions(32, 8, 8, 8, 64))
+    jobs["eval_rescue"] = teval._plan_for(rescue)[1]
 
     with tempfile.TemporaryDirectory() as tmp:
         def compile_one(item):

@@ -452,3 +452,37 @@ def test_kernel_matches_plain_on_card(dev, kernel):
                             gpow.to(dev)),
                   plain(cols, invs, pairs, gpow))
     assert build.KERNELS[kernel].launches > before
+
+
+@pytest.mark.parametrize("trace_len", [64, 1 << 12])
+def test_rescue_evaluator_matches_plain_on_card(dev, trace_len):
+    """Kernel E's instantiation for the Rescue AIR (eleven periodic inputs,
+    eight runtime-exponent powers, x^(N + N/16 + 5) from the chain's
+    x^(N/16)) against its plain version, in both launch ways."""
+    import torch
+
+    from ministark_tpu_torch import eval as teval
+    from ministark_tpu_torch.air import Air, ProofOptions
+    from ministark_tpu_torch.models.rescue import RescueAirConfig
+    from ministark_tpu_torch.ops import build
+    from ministark_tpu_torch.ops import eval as keval
+
+    before = build.KERNELS["eval"].launches
+    air = Air(RescueAirConfig, trace_len, (7, 8, 1, 2),
+              ProofOptions(8, 8, 4, 4, 16))
+    plan, source, _ = teval._plan_for(air)
+    n = air.ce_domain().size
+    empty = torch.zeros((0, 3, n), dtype=torch.int64)
+    args = [_rand((4, n), 61), empty, air.ce_domain().elements("cpu"),
+            _rand((len(plan.periodic), n), 62),
+            _rand((len(plan.inv_keys), n), 63), empty,
+            _rand(max(plan.num_slots, 1), 64)]
+    for what, e, _kind in plan.scalars:  # Pow exponents sit in the table
+        if what == "exp":
+            args[-1][plan.slot[("exp", e)]] = e
+    want = keval.eval_terms_plain(plan, air.ce_blowup_factor, *args)
+    for launch in ("grid", "groups"):
+        _same(torch, keval.eval_terms(plan, source, air.ce_blowup_factor,
+                                      *[a.to(dev) for a in args],
+                                      launch=launch), want)
+    assert build.KERNELS["eval"].launches > before
