@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
 
-Seven main paths, each driven through the user's entry points: the fib
+Eight main paths, each driven through the user's entry points: the fib
 prove (Fp, SHA-256), the brainfuck proves of fibonacci.bf and hello_world
 (Fq3 extension field, SHA-256), the fully algebraic fib prove (RPO-256
 trees and coin), hello_world with RPO-256 trees and coin (Fq3, the device
-RPO grind), a 2^29-point coset LDE (the multi-pass column NTT), and the
+RPO grind), a 2^29-point coset LDE (the multi-pass column NTT), the
 Rescue-Prime hash chain (Fp, SHA-256; eleven periodic columns, powers of
-trace sums).  Phases, any failure exits non-zero:
+trace sums), and the 128- and 252-bit field vectors with their NTT at
+2^18 points (BIG).  Every prove's FRI commit phase runs the device coin
+between its layers (``coin_sha``, or ``coin_rpo`` for the RPO coin).
+Phases, any failure exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every hand-written kernel from ``ministark_tpu_torch/csrc`` and
      the constraint evaluators generated for the fib, brainfuck and Rescue
@@ -38,7 +41,12 @@ trace sums).  Phases, any failure exits non-zero:
      and its plain version, and at 2^16 on one and on 16 columns), and
      the nine kernels of the Rescue path at its 2^18-row prove's shapes
      (2^21-point LDE and CE domains: the 8-column composition LDE, the
-     4-column trace, the Rescue evaluator with its periodic inputs);
+     4-column trace, the Rescue evaluator with its periodic inputs); each
+     prove path's coin step on seeds made from the path's name (k = 1, 3,
+     5 draws for SHA-256, 1-8 for RPO-256, the root read in place from a
+     level of digests; an RPO draw digest at a counter past 2^32 against
+     the host's); and BIG's big_ntt (Fp128 and Fp252, forward and
+     inverse, plain and coset) and big_mul at 2^18 points;
      integer field math, so the tolerance is exact equality;
      print the kernel's time, the plain version's, the bound (the least time the
      card could take) and, where one PyTorch call computes the same
@@ -77,12 +85,16 @@ trace sums).  Phases, any failure exits non-zero:
      ``Matrix.interpolate``/``evaluate``, checked exactly (the inverse
      transform gives the coefficients back; a column of 64 coefficients
      agrees with Horner's rule on the host at a few points);
- 12. print the card, the kernel table as one JSON line (one entry per
+ 12. BIG: Fp128 and Fp252 ``BigDomain`` at 2^18 points, plain and over
+     the coset of the field's generator, fft and ifft timed and checked
+     the same way (ifft(fft(x)) == x; Horner at a few points), and
+     ``BigField.mul`` of 2^18 pairs against bigint products of a sample;
+ 13. print the card, the kernel table as one JSON line (one entry per
      kernel and path, with that path's launches), then the result.
 
-In phases 5-11 the counts of launches are reset just before the warm run
+In phases 5-12 the counts of launches are reset just before the warm run
 and read just after, with per-phase CUDA-event times (the warm prove's
-Proof of work phase printed on a line of its own) and peak device memory; the port's verifier must accept each proof (30 bits for fib, 96
+Proof of work and FRI phases printed on lines of their own) and peak device memory; the port's verifier must accept each proof (30 bits for fib, 96
 for brainfuck; on the host, in pure Python for RPO) and reject it with one
 byte flipped.  It imports nothing of JAX and nothing of ``ministark_tpu``.
 """
@@ -109,19 +121,22 @@ HELLO = "bf_hello_world"  # bench.py's latency line
 FIB_RPO, BF_RPO = "fib_rpo_2e24", "bf_hello_world_rpo"  # the RPO paths'
 LDE = "lde_2e29"
 RESCUE = "rescue_2e18"  # the Rescue hash chain, 2^14 links
+BIG = "big_2e18"  # the 128- and 252-bit field vectors and their NTT
 FIB_PATH = ("inv", "ntt", "transpose", "sha256", "eval", "deep", "ood_sums",
-            "sha256_grind", "sha256_tree")
+            "sha256_grind", "sha256_tree", "coin_sha")
 BF_PATH = ("inv", "ntt", "transpose", "sha256", "inv_ext3", "sha256_ext3",
            "eval_ext3", "deep_ext3", "ood_sums_ext3", "sha256_grind",
-           "sha256_tree")
+           "sha256_tree", "coin_sha")
 FIB_RPO_PATH = ("inv", "ntt", "transpose", "eval", "deep", "ood_sums",
-                "rpo256", "rpo256_grind", "rpo256_tree")
+                "rpo256", "rpo256_grind", "rpo256_tree", "coin_rpo")
 BF_RPO_PATH = ("inv", "ntt", "transpose", "inv_ext3", "eval_ext3",
                "deep_ext3", "ood_sums_ext3", "rpo256", "rpo256_grind",
-               "rpo256_tree")
+               "rpo256_tree", "coin_rpo")
 LDE_PATH = ("ntt", "transpose", "ntt_stage")
 RESCUE_PATH = ("inv", "ntt", "transpose", "sha256", "eval", "deep",
-               "ood_sums", "sha256_grind", "sha256_tree")
+               "ood_sums", "sha256_grind", "sha256_tree", "coin_sha")
+BIG_PATH = ("big_mul", "big_ntt")
+BIG_LOG_N = 18  # the largest size of the reference's FFT bench
 RPO_SAMPLE = 1 << 18  # states the plain RPO permutation is compared on
 SHA_SAMPLE = 1 << 18  # leaves and nonces the plain SHA-256 is compared on
 
@@ -163,6 +178,28 @@ OPS_SHA_GRIND = 56 * OPS_SHA_ROUND + 48 * OPS_SHA_WORD
 # reduction) and 24 round-constant adds
 OPS_MDS = 12 * (24 * 2 + 10)
 OPS_RPO = 7 * (12 * 76 * OPS_MUL + 2 * OPS_MDS + 24 * OPS_ADD)
+# A big-field Montgomery product over W 32-bit words (W = 4 for Fp128, 8
+# for Fp252; the kernel's u64 limbs are pairs of them): CIOS takes 2 W^2 +
+# W word products (a b, then q p, and q), each a 32x32->64 multiply-add
+# into a carry chain (two instructions, mad.lo.cc and madc.hi.cc), and a
+# conditional subtraction of W borrows and W selects; a sum or difference
+# W adds with carry and the conditional correction (W subtractions with
+# borrow, W selects).
+def ops_big_mul(w: int) -> int:
+    return 2 * (2 * w * w + w) + 2 * w
+
+
+def ops_big_add(w: int) -> int:
+    return 3 * w
+
+
+# The coin steps: the SHA-256 reseed is a 64-byte merge (a data block and
+# a block of padding alone), a draw digest a 40-byte message whose rounds
+# 0-7 read only the seed (OPS_SHA_GRIND), an accepted draw one product by
+# R^-1; the RPO-256 reseed is one permutation, a digest of four draws
+# another; N powers of alpha take N - 2 products (Fp or Fq3: alpha^0 and
+# alpha^1 are given).
+OPS_COIN_SHA_RESEED = OPS_SHA_BLOCK + OPS_SHA_PAD_BLOCK
 
 
 def fail(msg: str) -> None:
@@ -1023,6 +1060,183 @@ def compare_grind(ck: Checker, path, bits):
                                      if batch > sample else None))
 
 
+def compare_coin(ck: Checker, path, fold, rpo=False):
+    """The path's coin step (``coin_sha``, or ``coin_rpo`` for the RPO
+    coin) against its plain version on seeds and roots made from the
+    path's name: k = 1, 3, 5 draws for SHA-256, 1-8 for RPO-256 (Fp draws
+    one at a time, an Fq3 alpha three), with the `fold` powers of alpha
+    the path's folds take for k = 1 and 3; the root read in place from a
+    level of digests.  For the RPO coin also one draw digest at a counter
+    past 2^32 against the host's ``hash_rpo.merge_with_int``."""
+    import hashlib
+
+    torch = ck.torch
+    from ministark_tpu_torch import hash_rpo
+    from ministark_tpu_torch.ops import coin as kcoin
+
+    name = "coin_rpo" if rpo else "coin_sha"
+    fn = kcoin.coin_rpo if rpo else kcoin.coin_sha
+    plain = kcoin.coin_rpo_plain if rpo else kcoin.coin_sha_plain
+    ks = range(1, 9) if rpo else (1, 3, 5)
+    tag = path.encode()
+    if rpo:  # RPO roots and seeds: four canonical elements
+        seed = hash_rpo.hash_elements(list(hashlib.sha256(tag).digest()[:8]))
+        root = hash_rpo.hash_elements(list(tag))
+    else:
+        seed = hashlib.sha256(tag).digest()
+        root = hashlib.sha256(tag + b" root").digest()
+    level = torch.stack([kcoin.seed_tensor(d, ck.dev) for d in (seed, root)])
+    s = level[0].clone()
+
+    def flat(out):
+        return torch.cat([out[0].view(torch.int64), out[1],
+                          out[2].reshape(-1)])
+
+    def powers(k):
+        return fold if k in (1, 3) else 0
+
+    def make(k):
+        return lambda: (lambda: flat(fn(s, level[1], k, powers(k))),
+                        lambda: flat(plain(s, level[1], k, powers(k))), None)
+
+    ck.check(name, path, [make(k) for k in ks],
+             sum(32 * 3 + 8 * k * (1 + powers(k)) for k in ks),
+             sum((OPS_RPO if rpo else OPS_COIN_SHA_RESEED)
+                 + (k + 3) // 4 * (OPS_RPO if rpo else OPS_SHA_GRIND)
+                 + k * OPS_MUL
+                 + max(powers(k) - 2, 0) * (OPS_MUL if k == 1 else OPS_MUL3)
+                 for k in ks), reps=20, plain_reps=1)
+    if rpo:
+        counter = (1 << 32) + 5
+        d = kcoin.rpo_draw_digests(s.view(torch.int64),
+                                   torch.tensor([counter], device=ck.dev))
+        want = hash_rpo.merge_with_int(seed, counter)
+        got = d[:, 0].cpu().numpy().tobytes()
+        print(f"kernel coin_rpo ({path}): draw digest at counter 2^32 + 5 "
+              f"equal to hash_rpo.merge_with_int's: {got == want}",
+              flush=True)
+        if got != want:
+            fail("the RPO draw digest at a counter past 2^32 differs")
+
+
+def big_values(field, n, seed):
+    """n field values made from a numpy seed, uniform below p."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nb = (field.p.bit_length() + 7) // 8 + 8
+    raw = rng.bytes(nb * n)
+    return [int.from_bytes(raw[i:i + nb], "little") % field.p
+            for i in range(0, nb * n, nb)]
+
+
+def compare_big_kernels(ck: Checker):
+    """The BIG path's kernels at 2^18 points (2^18 pairs), Fp128 and
+    Fp252: big_ntt forward and inverse, plain and coset (offset the
+    field's generator), and big_mul, against their plain versions."""
+    from ministark_tpu_torch.fields.bigvec import BigDomain, Fp128Vec, Fp252Vec
+    from ministark_tpu_torch.ops import bigfield as kbig
+
+    n = 1 << BIG_LOG_N
+    ntt_parts, mul_parts = [], []
+    ntt_bytes = ntt_ops = mul_bytes = mul_ops = 0
+    for f in (Fp128Vec, Fp252Vec):
+        w = 2 * f.L64
+        x = f.pack(big_values(f, n, f.L64), ck.dev)
+        y = f.pack(big_values(f, n, f.L64 + 1), ck.dev)
+        for offset in (1, f.generator):
+            dom = BigDomain(f, n, offset)
+            for inverse in (False, True):
+                tw, first, last = dom._tables(inverse, str(ck.dev))
+                ntt_parts.append(
+                    lambda x=x, tw=tw, first=first, last=last, f=f: (
+                        lambda: kbig.big_ntt(x, tw, f, first, last),
+                        lambda: kbig.big_ntt_plain(x, tw, f, first, last),
+                        None))
+                scaled = first is not None or last is not None
+                ntt_bytes += 2 * 8 * f.L64 * n
+                ntt_ops += (n // 2 * BIG_LOG_N * (ops_big_mul(w)
+                                                 + 2 * ops_big_add(w))
+                            + (n * ops_big_mul(w) if scaled else 0))
+        mul_parts.append(lambda x=x, y=y, f=f: (
+            lambda: kbig.big_mul(x, y, f), lambda: kbig.big_mul_plain(x, y, f),
+            None))
+        mul_bytes += 3 * 8 * f.L64 * n
+        mul_ops += n * ops_big_mul(w)
+    ck.check("big_ntt", BIG, ntt_parts, ntt_bytes, ntt_ops, reps=5,
+             plain_reps=1)
+    ck.check("big_mul", BIG, mul_parts, mul_bytes, mul_ops, reps=5,
+             plain_reps=1)
+
+
+def big_path(torch, build, ck):
+    """The BIG path through the user's entry points: for Fp128 and Fp252 a
+    2^18-point ``BigDomain`` plain and over the coset of the field's
+    generator, ``fft`` and ``ifft`` timed (CUDA events, the mean of three
+    after one) and checked (ifft(fft(x)) == x; 64 coefficients against
+    Horner's rule on the host at a few points), and ``BigField.mul`` of
+    2^18 pairs against the bigint products of a sample.  The launch counts
+    are reset just before and read just after."""
+    from ministark_tpu_torch.fields.bigvec import BigDomain, Fp128Vec, Fp252Vec
+
+    n = 1 << BIG_LOG_N
+    fields, ok = {}, True
+    doms = {(f.name, off): BigDomain(f, n, off)
+            for f in (Fp128Vec, Fp252Vec) for off in (1, f.generator)}
+    for (name, off), dom in doms.items():  # tables built before the run
+        for inverse in (False, True):
+            dom._tables(inverse, str(ck.dev))
+    inputs = {f.name: (f.pack(big_values(f, n, 7), ck.dev),
+                       f.pack(big_values(f, 64, 8), ck.dev),
+                       f.pack(big_values(f, n, 9), ck.dev))
+              for f in (Fp128Vec, Fp252Vec)}
+    torch.cuda.synchronize()
+    reset_counts(build)
+    for f in (Fp128Vec, Fp252Vec):
+        x, c64, y = inputs[f.name]
+        out = {}
+        for off in (1, f.generator):
+            dom = doms[(f.name, off)]
+            ev = dom.fft(x)
+            fft_ms = time_ms(torch, lambda: dom.fft(x), 3)
+            ifft_ms = time_ms(torch, lambda: dom.ifft(ev), 3)
+            back = torch.equal(dom.ifft(ev), x)
+            coeffs = f.unpack(c64)
+            pad = torch.zeros((f.L64, n), dtype=torch.int64, device=ck.dev)
+            pad[:, :64] = c64
+            evals = dom.fft(pad)
+            idx = (0, 1, n // 3 + 5, n - 1)
+            got = f.unpack(evals[:, list(idx)])
+            horner = all(g == _horner(f.p, coeffs, dom.element(i))
+                         for g, i in zip(got, idx))
+            out[f"offset_{off}"] = {"fft_ms": fft_ms, "ifft_ms": ifft_ms,
+                                    "ifft_fft_is_x": back,
+                                    "horner_4_points": horner}
+            ok &= back and horner
+        prod = f.mul(x, y)
+        mul_ms = time_ms(torch, lambda: f.mul(x, y), 3)
+        sample = range(0, n, n // 16)
+        xs, ys = f.unpack(x[:, list(sample)]), f.unpack(y[:, list(sample)])
+        exact = f.unpack(prod[:, list(sample)]) == [
+            a * b % f.p for a, b in zip(xs, ys)]
+        out["mul_ms"], out["mul_sample_exact"] = mul_ms, exact
+        ok &= exact
+        fields[f.name] = out
+    launches = read_counts(build, BIG_PATH, "the BIG path")
+    print(json.dumps({BIG: {"points": n, **fields, "launches": launches}}),
+          flush=True)
+    if not ok:
+        fail("the BIG path's transforms or products are not exact")
+    return {"launches": launches}
+
+
+def _horner(p, coeffs, x):
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % p
+    return acc
+
+
 def plain_by_columns(kntt, x, tw, pre=None, tmat=None, parts=16):
     """col_ntt_plain over `parts` slices of the columns, concatenated: the
     plain version of a 2^27- or 2^29-point pass, whose temporaries would
@@ -1271,6 +1485,10 @@ def prove_timed(torch, build, claim, opts, trace, path, what):
     print(f"{what}: warm Proof of work {pow_['host_ms']:.3f} ms host, "
           f"{pow_['device_ms']:.3f} ms device (nonce {proof.pow_nonce}, "
           f"grind {opts.grinding_factor} bits)", flush=True)
+    fri = next(p for p in phases if p["phase"] == "FRI")
+    print(f"{what}: warm FRI {fri['host_ms']:.3f} ms host, "
+          f"{fri['device_ms']:.3f} ms device (CUDA events), "
+          f"{len(proof.fri_proof.layers)} layers", flush=True)
     return proof, {"cold_prove_s": cold_s, "warm_prove_s": warm_s,
                    "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
                    "phases": phases, "launches": launches}
@@ -1386,8 +1604,9 @@ def main() -> int:
                                                        RescueClaim)
         from ministark_tpu_torch.models.rescue import (
             gen_trace as rescue_trace)
-        from ministark_tpu_torch.ops import (build, deep, eval, inv, ntt,  # noqa: F401
-                                            rpo256, sha256, transpose)
+        from ministark_tpu_torch.ops import (bigfield, build, coin,  # noqa: F401
+                                            deep, eval, inv, ntt, rpo256,
+                                            sha256, transpose)
         import ministark_tpu_torch.ops.pow  # noqa: F401
     except ImportError as e:
         fail(f"the port is not importable beside this script: {e}")
@@ -1453,6 +1672,7 @@ def main() -> int:
                           (HELLO, BF_OPTS[2], hello_n)):
         compare_sha_grind(ck, path, bits)
         compare_tree(ck, path, n, min(n, SHA_SAMPLE), sha=True)
+        compare_coin(ck, path, (FIB_OPTS if path == FIB else BF_OPTS)[3])
     torch.cuda.empty_cache()
     compare_fib_kernels(ck, fib_air_big, FIB_RPO, FIB_RPO_PATH)
     compare_fib_rpo_kernels(ck, fib_air_big)
@@ -1462,6 +1682,8 @@ def main() -> int:
     compare_grind(ck, BF_RPO, BF_OPTS[2])
     compare_tree(ck, FIB_RPO, fib_air_big.lde_domain().size, RPO_SAMPLE)
     compare_tree(ck, BF_RPO, hello_n, hello_n)
+    compare_coin(ck, FIB_RPO, FIB_OPTS[3], rpo=True)
+    compare_coin(ck, BF_RPO, BF_OPTS[3], rpo=True)
     torch.cuda.empty_cache()
     compare_lde_kernels(ck)
     torch.cuda.empty_cache()
@@ -1469,6 +1691,9 @@ def main() -> int:
     rescue_n = rescue_air_big.lde_domain().size
     compare_sha_grind(ck, RESCUE, RESCUE_OPTS[2])
     compare_tree(ck, RESCUE, rescue_n, min(rescue_n, SHA_SAMPLE), sha=True)
+    compare_coin(ck, RESCUE, RESCUE_OPTS[3])
+    torch.cuda.empty_cache()
+    compare_big_kernels(ck)
     torch.cuda.empty_cache()
 
     # -- phase 4: the golden proofs ------------------------------------------
@@ -1606,6 +1831,9 @@ def main() -> int:
     # -- phase 11: the 2^29-point LDE -------------------------------------------
     lde = lde_2e29(torch, build, ck)
 
+    # -- phase 12: the 128- and 252-bit field vectors at 2^18 points -----------
+    big = big_path(torch, build, ck)
+
     # one entry per kernel and path: checked at that path's shapes, with
     # the launches of that path's warm run
     kernels = []
@@ -1615,7 +1843,8 @@ def main() -> int:
             (FIB_RPO, FIB_RPO_PATH, fib_rpo_run["launches"]),
             (BF_RPO, BF_RPO_PATH, hello_rpo["launches"]),
             (LDE, LDE_PATH, lde["launches"]),
-            (RESCUE, RESCUE_PATH, rescue["launches"])):
+            (RESCUE, RESCUE_PATH, rescue["launches"]),
+            (BIG, BIG_PATH, big["launches"])):
         for name in names:
             k = build.KERNELS[name]
             src = (f"ministark_tpu_torch/csrc/{k.source}" if k.source

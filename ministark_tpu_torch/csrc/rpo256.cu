@@ -36,32 +36,9 @@
 
 #define RPO_LANE_THREADS 128
 
-// a group's exchange on the card: 64-bit shuffles within its G lanes
-template <int E>
-struct ShflEx {
-    __device__ __forceinline__ void operator()(const uint64_t* v,
-                                               uint64_t* s) const {
-        constexpr int G = rpo_group_lanes<E>();
-#pragma unroll
-        for (int k = 0; k < RPO_WIDTH; k++)
-            s[k] = __shfl_sync(0xFFFFFFFFu, (unsigned long long)v[k % E],
-                               k / E, G);
-    }
-};
-
 struct BlockSync {
     __device__ __forceinline__ void operator()() const { __syncthreads(); }
 };
-
-// the round constants copied to shared memory: the lanes of a group read
-// different ones, which __constant__ memory would serialise
-__device__ __forceinline__ const uint64_t* rc_to_shared(uint64_t* sm) {
-    const uint64_t* rc = &rpo_rc_dev[0][0][0];
-    for (int i = threadIdx.x; i < 2 * RPO_ROUNDS * RPO_WIDTH; i += blockDim.x)
-        sm[i] = rc[i];
-    __syncthreads();
-    return sm;
-}
 
 // A grid-stride loop over n states, a group of G lanes each, in which a
 // warp's groups move together (the shuffles need every lane of the warp):

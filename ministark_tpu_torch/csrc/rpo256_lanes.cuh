@@ -156,6 +156,31 @@ GL_HD void rpo_permute_lanes(const RpoLane<E>& ln, uint64_t* v, Ex ex,
     for (int e = 0; e < E; e++) v[e] = gl_canon(v[e]);
 }
 
+#ifdef __CUDACC__
+// a group's exchange on the card: 64-bit shuffles within its G lanes
+template <int E>
+struct ShflEx {
+    __device__ __forceinline__ void operator()(const uint64_t* v,
+                                               uint64_t* s) const {
+        constexpr int G = rpo_group_lanes<E>();
+#pragma unroll
+        for (int k = 0; k < RPO_WIDTH; k++)
+            s[k] = __shfl_sync(0xFFFFFFFFu, (unsigned long long)v[k % E],
+                               k / E, G);
+    }
+};
+
+// the round constants copied to shared memory: the lanes of a group read
+// different ones, which __constant__ memory would serialise
+__device__ __forceinline__ const uint64_t* rc_to_shared(uint64_t* sm) {
+    const uint64_t* rc = &rpo_rc_dev[0][0][0];
+    for (int i = threadIdx.x; i < 2 * RPO_ROUNDS * RPO_WIDTH; i += blockDim.x)
+        sm[i] = rc[i];
+    __syncthreads();
+    return sm;
+}
+#endif
+
 // -- the group's part of each entry point ------------------------------------
 
 // a merge's state [0, 0, 0, 0 | left | right] (two 4-element digests)

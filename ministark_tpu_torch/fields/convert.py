@@ -31,3 +31,27 @@ def to_u64_numpy(t: torch.Tensor) -> np.ndarray:
 def from_u64_numpy(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint64)
                             .view(np.int64).copy())
+
+
+def from_jax_big_limbs(limbs16) -> torch.Tensor:
+    """The JAX package's big-field limbs ((L16, n) uint32, 16 bits each,
+    ``ministark_tpu.fields.bigvec``) -> the port's (L16 / 4, n) int64 u64
+    limbs (``fields.bigvec``): four 16-bit limbs a u64, the same
+    Montgomery values."""
+    a = np.asarray(limbs16, dtype=np.uint64)
+    L16 = a.shape[0]
+    if L16 % 4:
+        raise ValueError(f"need a multiple of four 16-bit limbs, got {L16}")
+    q = a.reshape(L16 // 4, 4, *a.shape[1:])
+    v = (q[:, 0] | (q[:, 1] << np.uint64(16)) | (q[:, 2] << np.uint64(32))
+         | (q[:, 3] << np.uint64(48)))
+    return torch.from_numpy(v.view(np.int64).copy())
+
+
+def to_jax_big_limbs(t: torch.Tensor) -> np.ndarray:
+    """The port's (L64, n) int64 u64 limbs -> (4 L64, n) uint32 16-bit
+    limbs, the JAX package's layout."""
+    v = t.detach().cpu().numpy().view(np.uint64)
+    parts = [(v >> np.uint64(16 * j)) & np.uint64(0xFFFF) for j in range(4)]
+    return np.stack(parts, axis=1).reshape(4 * v.shape[0],
+                                           *v.shape[1:]).astype(np.uint32)

@@ -10,8 +10,18 @@ Protocol facts replicated exactly (they affect proof bytes):
 * the remainder is the iNTT of the last layer; coefficients above
   size/blowup must be zero and are not sent.
 
-The prover runs one layer at a time with the host coin between layers:
-NTTs through kernels B and C, the fold in plain PyTorch, row hashes and
+The commit phase runs on the device with the coin between layers on the
+device too (``ops.coin``, mirrors the JAX package's fused FRI pipeline):
+commit layer 0, one coin launch reseeds with its root (read in place) and
+draws alpha and its first N powers, fold with them, commit layer 1, ..,
+the last fold, which gives the remainder coefficients directly.  Then ONE copy brings
+the L roots, the L alphas and the remainder to the host, and the host
+coin replays the transcript from the roots and raises if any device draw
+differs.  The device coin speaks SHA-256 over SHA-256 or RPO-256 trees,
+and RPO-256 over RPO-256 trees; an RPO-256 coin over SHA-256 trees
+(whose roots are arbitrary bytes, possibly >= p) keeps the host coin
+between layers, each root copied to the host before the next fold.  NTTs
+run through kernels B and C, the fold in plain PyTorch, row hashes and
 tree levels through kernel D (SHA-256 trees) or G (RPO-256 trees).  An
 Fq3 codeword is a (3, n) tensor; its layer rows of N elements serialize
 each element as c0 || c1 || c2, so a layer is kept as an (N, 3, n/N) Fq3
@@ -24,11 +34,13 @@ from dataclasses import dataclass
 
 import torch
 
-from . import merkle
+from . import hash as H
+from . import hash_rpo, merkle
 from .fields import device as fd
 from .fields.scalar import Fp, Fq3, P, get_root_of_unity
 from .merkle import MerkleView
 from .ntt import Domain, bit_reverse_index, permute_bitrev
+from .ops import coin as kcoin
 
 
 @dataclass(frozen=True)
@@ -119,12 +131,62 @@ class FriProver:
         assert not self.layers
         n = evals.shape[-1]
         N = self.options.folding_factor
-        for _ in range(self.options.num_layers(n)):
-            evals = self._build_layer(channel, evals, n, N)
+        L = self.options.num_layers(n)
+        step = device_coin_step(channel.public_coin.hashfn, self.hashfn)
+        if L >= 1 and step is not None:
+            return self._build_layers_device_coin(channel, evals, n, N, L,
+                                                  step)
+        for _ in range(L):
+            tree, rows = self._commit_layer(evals, n, N)
+            channel.commit_fri_layer(tree.root())
+            self.layers.append(_Layer(tree, rows))
+            powers = alpha_powers(channel.draw_fri_alpha(), N, evals.device)
+            evals = fold_evals(evals, n, N, powers)
             n //= N
-        self._set_remainder(channel, evals, n)
+        self._set_remainder(channel, Domain(n).ifft(evals), n)
 
-    def _build_layer(self, channel, evals, n: int, N: int):
+    def _build_layers_device_coin(self, channel, evals, n: int, N: int,
+                                  L: int, step):
+        """Every layer's commit, coin step and fold queued on the device
+        with no transfer in between; then one copy of the roots, the
+        alphas and the remainder, and the host coin's replay."""
+        k = 3 if evals.ndim == 2 else 1
+        seed = kcoin.seed_tensor(channel.public_coin.seed, evals.device)
+        roots, alphas = [], []
+        for i in range(L):
+            tree, rows = self._commit_layer(evals, n, N)
+            self.layers.append(_Layer(tree, rows))
+            root = tree.levels[-1][0]
+            seed, alpha, powers = step(seed, root, k, N)
+            roots.append(root)
+            alphas.append(alpha)
+            # the last fold is the remainder's coefficients: no forward NTT
+            # (the host path's fft is inverted straight back)
+            coeffs = fold_coeffs(evals, n, N, powers)
+            n //= N
+            if i < L - 1:
+                evals = Domain(n).fft(coeffs)
+        blob = torch.cat([torch.stack(roots).view(torch.int64).reshape(-1),
+                          torch.stack(alphas).reshape(-1),
+                          coeffs.reshape(-1)]).cpu()
+        root_words, alpha_vals = blob[:4 * L], blob[4 * L:4 * L + k * L]
+        for i in range(L):
+            root = root_words[4 * i:4 * i + 4].numpy().tobytes()
+            self.layers[i].tree._root = root
+            channel.commit_fri_layer(root)
+            host = channel.draw_fri_alpha()
+            host = [host.v] if k == 1 else [host.c0.v, host.c1.v, host.c2.v]
+            dev = fd.to_ints(alpha_vals[k * i:k * i + k])
+            if dev != host:
+                raise AssertionError(
+                    f"device coin diverged from host replay at FRI layer "
+                    f"{i}: {dev} != {host}")
+        self._set_remainder(channel, blob[4 * L + k * L:].reshape(
+            coeffs.shape), n)
+
+    def _commit_layer(self, evals, n: int, N: int):
+        """The layer's tree and rows: bit-reversed evals chunked into rows
+        of N, a leaf a row."""
         bitrev = permute_bitrev(evals)
         dh = merkle.device_hash(self.hashfn)
         if evals.ndim == 1:
@@ -135,13 +197,9 @@ class FriProver:
             digests = dh.hash_rows_ext3(rows)
         tree = merkle.CommittedMerkleTree.from_leaf_digests(digests,
                                                             self.hashfn)
-        channel.commit_fri_layer(tree.root())
-        self.layers.append(_Layer(tree, rows))
-        alpha = channel.draw_fri_alpha()
-        return fold_evals(evals, n, N, alpha)
+        return tree, rows
 
-    def _set_remainder(self, channel, evals, n: int):
-        coeffs = Domain(n).ifft(evals)
+    def _set_remainder(self, channel, coeffs, n: int):
         vals = (fd.ext3_to_scalars(coeffs) if coeffs.ndim == 2
                 else [Fp(v) for v in fd.to_ints(coeffs)])
         max_coeffs = n // self.options.blowup_factor
@@ -162,23 +220,52 @@ class FriProver:
         return FriProof(proof_layers, self.remainder_coeffs)
 
 
-def fold_evals(evals: torch.Tensor, n: int, N: int, alpha) -> torch.Tensor:
-    """One degree-respecting projection: plain iNTT, fold coefficient chunks
-    by alpha powers, scale by N, plain NTT on the smaller domain.  evals:
-    (n,) with an Fp alpha, or (3, n) with an Fq3 alpha."""
-    ext = evals.ndim == 2
+def device_coin_step(coin_hash, tree_hash):
+    """The device coin step for a coin hashing with `coin_hash` over trees
+    hashing with `tree_hash` (``ops.coin.coin_sha`` or ``coin_rpo``), or
+    None: an RPO-256 coin absorbs a root as four field elements, so over
+    SHA-256 trees (roots of arbitrary bytes) it stays on the host."""
+    if coin_hash is H and tree_hash in (H, hash_rpo):
+        return kcoin.coin_sha
+    if coin_hash is hash_rpo and tree_hash is hash_rpo:
+        return kcoin.coin_rpo
+    return None
+
+
+def alpha_powers(alpha, N: int, device) -> torch.Tensor:
+    """alpha^j for j < N of a host-drawn alpha, as the fold takes them:
+    (1, N) for Fp, (3, N) component planes for Fq3, on `device`."""
+    p, out = type(alpha).one(), []
+    for _ in range(N):
+        out.append([p.v] if isinstance(p, Fp) else [p.c0.v, p.c1.v, p.c2.v])
+        p = p * alpha
+    return torch.tensor([[fd.to_i64(v) for v in col] for col in zip(*out)],
+                        dtype=torch.int64, device=device)
+
+
+def fold_coeffs(evals: torch.Tensor, n: int, N: int,
+                powers: torch.Tensor) -> torch.Tensor:
+    """One degree-respecting projection up to the smaller domain's
+    coefficients: plain iNTT, each chunk of N coefficients weighed by the
+    powers of alpha and summed, scaled by N.  evals: (n,) with (1, N) Fp
+    powers, or (3, n) with (3, N) Fq3 powers, on evals' device.  The
+    chunks are weighed in one product and summed by pairwise halving: a
+    layer's plain torch launches do not grow with N (a product a power
+    took a few hundred launches an Fq3 layer)."""
     coeffs = Domain(n).ifft(evals).reshape(*evals.shape[:-1], n // N, N)
-    acc = coeffs[..., 0]
-    apow = alpha
-    for j in range(1, N):
-        if ext:
-            term = fd.ext3_mul(coeffs[..., j],
-                               fd.ext3_scalar(apow, evals.device))
-        else:
-            term = fd.mul(coeffs[..., j], apow.v)
-        acc = fd.add(acc, term)
-        apow = apow * alpha
-    return Domain(n // N).fft(fd.mul(acc, N))
+    if evals.ndim == 2:  # (n/N, 3, N): components on axis -2
+        acc = fd.sum_mod(fd.ext3_mul(coeffs.permute(1, 0, 2), powers),
+                         -1).T.contiguous()
+    else:
+        acc = fd.sum_mod(fd.mul(coeffs, powers[0]), -1)
+    # N made on the device (a fill, not a copy that waits for the stream)
+    return fd.mul(acc, fd.full((), N, acc.device))
+
+
+def fold_evals(evals: torch.Tensor, n: int, N: int,
+               powers: torch.Tensor) -> torch.Tensor:
+    """``fold_coeffs`` evaluated on the smaller plain domain (plain NTT)."""
+    return Domain(n // N).fft(fold_coeffs(evals, n, N, powers))
 
 
 def fold_positions(positions: list[int], N: int) -> list[int]:

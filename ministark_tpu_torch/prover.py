@@ -7,11 +7,11 @@ the Stark's `merkle_hash` and the public coin with its `coin_hash`: SHA-256
 
 Every matrix stays in NATURAL domain order on the device holding the
 witness; bit-reversed order exists only at commitment and query time.  The
-flow is one plain phase after another with the host coin between them:
-the TPU package's single-dispatch programs (the fused composition commit,
-the fused FRI pipeline with its on-device coin, the bundled decommit
-transfer) existed because each dispatch through its remote relay cost a
-round trip, and a local card has no such cost.  The bytes are the same.
+flow is one phase after another with the host coin between them; inside
+the FRI commit phase the coin runs on the device between the layers
+(``fri.FriProver``, ``ops.coin``) and the host coin replays it from the
+roots afterwards, so the layers need no transfer in between.  The bytes
+are the JAX package's.
 """
 
 from __future__ import annotations

@@ -5,6 +5,7 @@ LDE, from one tree, for comparing two commits on one card.
     git archive <commit> | tar -x -C DIR     # a git-ignored directory
     python3 scripts/ab_proves.py DIR parent [WORKLOAD ...]
     python3 scripts/ab_proves.py . change [WORKLOAD ...]
+    python3 scripts/ab_proves.py --host-coin . host_coin [WORKLOAD ...]
 
 Imports the port and chip_smoke.py from the tree at ROOT (its first
 argument) and proves each of the workloads (default: ``fib``, ``bf``,
@@ -13,12 +14,22 @@ times in a row, the first cold (the first prove of all builds the
 kernels); prints one JSON line of the seconds, host clock around each
 prove ending in a synchronise, each prove's "Proof of work" phase (host
 ms, under ``<workload>_pow_ms``), its "DEEP composition" phase (device ms
-by CUDA events, ``<workload>_deep_ms``) and its peak device memory (GiB,
-``<workload>_peak_gib``), tagged with its second argument.  The
+by CUDA events, ``<workload>_deep_ms``), its "FRI" phase (device ms by
+CUDA events and host ms, ``<workload>_fri_ms`` and
+``<workload>_fri_host_ms``) and its peak device memory (GiB,
+``<workload>_peak_gib``; ``<workload>_phase_peak_gib`` gives, for the
+last prove, the peak so far at the end of each phase, so the phase that
+raised it shows), tagged with its second argument.  The
+workload ``rescue`` is chip_smoke.py's Rescue chain (its host chain runs
+once, before the proves).  The
 workload ``lde`` is chip_smoke.py's 2^29-point coset LDE of a 2^27-row
 column (``Matrix.interpolate`` then ``evaluate``), timed in device ms by
 CUDA events.  Run the two trees in turns in one call (parent, change,
-change, parent) and compare the warm runs.
+change, parent) and compare the warm runs.  ``--host-coin`` makes the
+tree's FRI commit phase keep the host coin between its layers (each root
+copied to the host before the next fold, the path an RPO-256 coin over
+SHA-256 trees takes) by turning ``fri.device_coin_step`` off, for trees
+that have it.
 """
 
 from __future__ import annotations
@@ -60,7 +71,11 @@ def lde_ms(torch):
 
 
 def main() -> int:
-    root, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
+    args = sys.argv[1:]
+    host_coin = "--host-coin" in args
+    if host_coin:
+        args.remove("--host-coin")
+    root, tag = os.path.abspath(args[0]), args[1]
     import torch
 
     if not torch.cuda.is_available():
@@ -69,14 +84,30 @@ def main() -> int:
     sys.path.insert(0, root)
     import chip_smoke
 
+    if host_coin:
+        from ministark_tpu_torch import fri
+
+        fri.device_coin_step = lambda coin_hash, tree_hash: None
+    from ministark_tpu_torch.utils import timer
+
+    phase_exit = timer.Timer.__exit__
+
+    def exit_with_peak(self, *exc):
+        done = phase_exit(self, *exc)
+        if self.log:
+            self.log[-1]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return done
+
+    timer.Timer.__exit__ = exit_with_peak
     out = {"tree": tag}
-    names = sys.argv[3:] or ("fib", "bf", "hello", "fib_rpo", "hello_rpo")
+    names = args[2:] or ("fib", "bf", "hello", "fib_rpo", "hello_rpo")
     for name in names:
         if name == "lde":
             out["lde_ms"] = lde_ms(torch)
             continue
         claim, trace, opts, _info = chip_smoke.workload(name)
         times, pow_ms, deep_ms, peak = [], [], [], []
+        fri_ms, fri_host_ms = [], []
         for _ in range(3):
             phases: list = []
             torch.cuda.synchronize()
@@ -90,10 +121,17 @@ def main() -> int:
                        if p["phase"] == "Proof of work"]
             deep_ms += [p["device_ms"] for p in phases
                         if p["phase"] == "DEEP composition"]
+            fri = [p for p in phases if p["phase"] == "FRI"]
+            fri_ms += [p["device_ms"] for p in fri]
+            fri_host_ms += [p["host_ms"] for p in fri]
         out[name] = times
         out[f"{name}_pow_ms"] = pow_ms
         out[f"{name}_deep_ms"] = deep_ms
+        out[f"{name}_fri_ms"] = fri_ms
+        out[f"{name}_fri_host_ms"] = fri_host_ms
         out[f"{name}_peak_gib"] = peak
+        out[f"{name}_phase_peak_gib"] = {p["phase"]: p["peak_gib"]
+                                         for p in phases}
         del claim, trace
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)

@@ -32,7 +32,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OWN_KERNELS = ("inv_fp_kernel", "inv_ext3_kernel", "col_ntt_kernel",
                "col_ntt_pass_kernel", "transpose_kernel", "hash_rows_kernel",
                "merge_kernel", "ms_eval_", "deep_kernel", "ood_kernel",
-               "ood_reduce_kernel", "grind_kernel", "tree_tops_kernel")
+               "ood_reduce_kernel", "grind_kernel", "tree_tops_kernel",
+               "coin_sha_kernel", "coin_rpo_kernel")
 
 
 def busy_ms(intervals) -> float:

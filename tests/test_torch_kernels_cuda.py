@@ -19,7 +19,8 @@ P = 0xFFFFFFFF00000001
 KERNELS = ["inv", "ntt", "transpose", "sha256", "eval", "deep", "inv_ext3",
            "sha256_ext3", "eval_ext3", "deep_ext3", "ntt_stage", "rpo256",
            "rpo256_grind", "rpo256_tree", "sha256_grind", "sha256_tree",
-           "ood_sums", "ood_sums_ext3"]
+           "ood_sums", "ood_sums_ext3", "coin_sha", "coin_rpo", "big_mul",
+           "big_ntt"]
 
 
 @pytest.fixture
@@ -451,6 +452,70 @@ def test_kernel_matches_plain_on_card(dev, kernel):
             _same(torch, fn([c.to(dev) for c in cols], invs.to(dev), pairs,
                             gpow.to(dev)),
                   plain(cols, invs, pairs, gpow))
+    elif kernel in ("coin_sha", "coin_rpo"):
+        import hashlib
+
+        from ministark_tpu_torch import hash_rpo
+        from ministark_tpu_torch.ops import coin as kcoin
+
+        sha = kernel == "coin_sha"
+        fn = kcoin.coin_sha if sha else kcoin.coin_rpo
+        plain = kcoin.coin_sha_plain if sha else kcoin.coin_rpo_plain
+        for i in range(4):
+            if sha:
+                seed = hashlib.sha256(b"seed %d" % i).digest()
+                root = hashlib.sha256(b"root %d" % i).digest()
+            else:  # RPO digests: canonical elements
+                seed = hash_rpo.hash_elements([i, 3])
+                root = hash_rpo.hash_elements([i, 5])
+            for k in ((1, 3, 5) if sha else range(1, 9)):
+                # alpha's powers for an Fp or Fq3 alpha, 1 to 16 of them
+                for N in ((0, 1, 2, 16) if k in (1, 3) else (0,)):
+                    s, r = (kcoin.seed_tensor(seed, dev),
+                            kcoin.seed_tensor(root, dev))
+                    got = fn(s, r, k, N)
+                    want = plain(kcoin.seed_tensor(seed, "cpu"),
+                                 kcoin.seed_tensor(root, "cpu"), k, N)
+                    for g, w in zip(got, want):
+                        _same(torch, g, w)
+        # a root read in place from a level of a tree on the card
+        level = torch.stack([kcoin.seed_tensor(d, dev) for d in (seed, root)])
+        s = kcoin.seed_tensor(seed, dev)
+        for g, w in zip(fn(s, level[1], 3, 8),
+                        plain(s.cpu(), level[1].cpu(), 3, 8)):
+            _same(torch, g, w)
+    elif kernel in ("big_mul", "big_ntt"):
+        from ministark_tpu_torch.fields.bigvec import (BigDomain, Fp128Vec,
+                                                       Fp252Vec)
+        from ministark_tpu_torch.ops import bigfield as kbig
+
+        rng = np.random.default_rng(60)
+        for f in (Fp128Vec, Fp252Vec):
+            def vals(n):
+                nb = (f.p.bit_length() + 7) // 8 + 8
+                v = [int.from_bytes(rng.bytes(nb), "little") % f.p
+                     for _ in range(n)]
+                v[:3] = [0, 1, f.p - 1][:n]
+                return v
+            if kernel == "big_mul":
+                for n in (1, 3, 1000, 4099):
+                    a, b = f.pack(vals(n), "cpu"), f.pack(vals(n), "cpu")
+                    _same(torch, kbig.big_mul(a.to(dev), b.to(dev), f),
+                          kbig.big_mul_plain(a, b, f))
+                    _same(torch, kbig.big_mul(a.to(dev), b[:, :1].to(dev), f),
+                          kbig.big_mul_plain(a, b[:, :1], f))
+                continue
+            # every stage in the tile launch (n <= 1024), and beyond it
+            for n, off in ((1, 1), (2, 7), (32, 7), (1024, 1), (1 << 13, 7)):
+                dom = BigDomain(f, n, off)
+                x = f.pack(vals(n), "cpu")
+                for inverse in (False, True):
+                    t = [None if v is None else v.to(dev)
+                         for v in dom._tables(inverse, "cpu")]
+                    tc = dom._tables(inverse, "cpu")
+                    _same(torch, kbig.big_ntt(x.to(dev), t[0], f, t[1], t[2]),
+                          kbig.big_ntt_plain(x, *tc[:1], f, *tc[1:]))
+                _same(torch, dom.ifft(dom.fft(x.to(dev))), x)
     assert build.KERNELS[kernel].launches > before
 
 
