@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py
 
-Eight main paths, each driven through the user's entry points: the fib
+Nine main paths, each driven through the user's entry points: the fib
 prove (Fp, SHA-256), the brainfuck proves of fibonacci.bf and hello_world
 (Fq3 extension field, SHA-256), the fully algebraic fib prove (RPO-256
 trees and coin), hello_world with RPO-256 trees and coin (Fq3, the device
 RPO grind), a 2^29-point coset LDE (the multi-pass column NTT), the
 Rescue-Prime hash chain (Fp, SHA-256; eleven periodic columns, powers of
-trace sums), and the 128- and 252-bit field vectors with their NTT at
-2^18 points (BIG).  Every prove's FRI commit phase runs the device coin
+trace sums), the 128- and 252-bit field vectors with their NTT at
+2^18 points (BIG), and the multi-process prover (D: ``parallel``'s
+``prove_sharded`` over ``torch.distributed``).  Every prove's FRI commit phase runs the device coin
 between its layers (``coin_sha``, or ``coin_rpo`` for the RPO coin).
 Phases, any failure exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -89,10 +90,19 @@ Phases, any failure exits non-zero:
      the coset of the field's generator, fft and ifft timed and checked
      the same way (ifft(fft(x)) == x; Horner at a few points), and
      ``BigField.mul`` of 2^18 pairs against bigint products of a sample;
- 13. print the card, the kernel table as one JSON line (one entry per
+ 13. D: kernel B on both slabs a rank of two gives the sharded six-step
+     of the 2^23-point FRI fold, kernel C on its local transpose, kernel
+     D on a rank's 2^22 LDE rows and its subtree, each against its plain
+     version; then fib at 2^24 values by ``prove_sharded`` at NCCL world
+     size 1 in this process, and fib and hello_world in two gloo ranks
+     sharing the card (spawned; they load the libraries phase 2 built):
+     every rank's bytes must equal phase 5's or phase 7's one-process
+     proof and verify; cold and warm seconds, rank 0's per-phase device
+     ms and launches, collectives and bytes a prove, peak memory a rank;
+ 14. print the card, the kernel table as one JSON line (one entry per
      kernel and path, with that path's launches), then the result.
 
-In phases 5-12 the counts of launches are reset just before the warm run
+In phases 5-13 the counts of launches are reset just before the warm run
 and read just after, with per-phase CUDA-event times (the warm prove's
 Proof of work and FRI phases printed on lines of their own) and peak device memory; the port's verifier must accept each proof (30 bits for fib, 96
 for brainfuck; on the host, in pure Python for RPO) and reject it with one
@@ -136,6 +146,13 @@ LDE_PATH = ("ntt", "transpose", "ntt_stage")
 RESCUE_PATH = ("inv", "ntt", "transpose", "sha256", "eval", "deep",
                "ood_sums", "sha256_grind", "sha256_tree", "coin_sha")
 BIG_PATH = ("big_mul", "big_ntt")
+# D: the multi-process prover (parallel/), fib at F's size in SHARDED_RANKS
+# gloo ranks sharing the card (and at NCCL world size 1), hello_world in
+# SHARDED_RANKS gloo ranks; its kernel rows are at the shapes a rank gives
+# them (the sharded six-step's slabs, a rank's subtree)
+SHARDED = "sharded_fib_2e24"
+SHARDED_PATH = ("ntt", "transpose", "sha256", "sha256_tree")
+SHARDED_RANKS = 2
 BIG_LOG_N = 18  # the largest size of the reference's FFT bench
 RPO_SAMPLE = 1 << 18  # states the plain RPO permutation is compared on
 SHA_SAMPLE = 1 << 18  # leaves and nonces the plain SHA-256 is compared on
@@ -1459,7 +1476,11 @@ def reset_counts(build):
 
 
 def read_counts(build, path, what):
-    counts = {name: k.launches for name, k in build.KERNELS.items()}
+    return read_counts_of({name: k.launches
+                           for name, k in build.KERNELS.items()}, path, what)
+
+
+def read_counts_of(counts: dict, path, what):
     missing = [k for k in path if counts[k] == 0]
     if missing:
         fail(f"kernels {missing} did not launch in {what}: {counts}")
@@ -1585,6 +1606,220 @@ def lde_2e29(torch, build, ck):
     return {"device_ms": ms, "peak_device_gib": peak, "launches": launches}
 
 
+def compare_sharded_kernels(ck: Checker, fib_air_big, d: int):
+    """D's kernels at the shapes a rank of d gives them in the fib prove:
+    kernel B on both slabs of the sharded six-step of the first FRI fold's
+    inverse transform (2^23 points: (n1, n2/d) with the twiddle slab, then
+    (n2, n1/d) with 1/n), kernel C on its local transpose ((d, n1/d,
+    n2/d) blocks), and kernel D on a rank's rows of the LDE (rows j = rank
+    mod d of the 8 columns, and a level of merges) and on a rank's whole
+    subtree."""
+    from types import SimpleNamespace
+
+    from ministark_tpu_torch.fields.scalar import P
+    from ministark_tpu_torch.ntt import Domain, _split_n, _stage_table
+    from ministark_tpu_torch.ops import ntt as kntt
+    from ministark_tpu_torch.ops import sha256 as ksha
+    from ministark_tpu_torch.ops import transpose as ktr
+    from ministark_tpu_torch.parallel.ntt import ShardedDomain
+
+    torch, dev, rand = ck.torch, ck.dev, ck.rand
+    n = fib_air_big.lde_domain().size
+    cols = fib_air_big.config.NUM_BASE_COLUMNS
+    n1, n2 = _split_n(n)
+    m = n // d
+    sdom = ShardedDomain(SimpleNamespace(d=d, rank=0, device=dev), n)
+    root = Domain(n).group_gen_inv
+    tw1 = _stage_table(pow(root, n2, P), n1, dev)
+    tw2 = _stage_table(pow(root, n1, P), n2, dev)
+
+    def passes():
+        x1, x2 = rand(1, n1, n2 // d), rand(1, n2, n1 // d)
+        tmat, post = sdom._tmat(root), sdom._post()
+        return [lambda: (lambda: kntt.col_ntt(x1, tw1, tmat=tmat),
+                         lambda: kntt.col_ntt_plain(x1, tw1, tmat=tmat),
+                         None),
+                lambda: (lambda: kntt.col_ntt(x2, tw2, tmat=post),
+                         lambda: kntt.col_ntt_plain(x2, tw2, tmat=post),
+                         None)]
+    ck.check("ntt", SHARDED, passes(),
+             8 * (6 * m + n1 // 2 + n2 // 2),
+             m * (n.bit_length() - 1) // 2 * (OPS_MUL + 2 * OPS_ADD)
+             + 2 * m * OPS_MUL, reps=5, plain_reps=2)
+
+    x = rand(d, n1 // d, n2 // d)
+    ck.check("transpose", SHARDED,
+             part(lambda: ktr.transpose(x), lambda: ktr.transpose_plain(x),
+                  lambda: x.transpose(-1, -2).contiguous()),
+             16 * m, 0, reps=5)
+    del x
+
+    rows = rand(cols, m)  # a rank's rows of the LDE after the all_to_all
+    left, right = (torch.randint(0, 256, (m // 2, 32), generator=ck.g,
+                                 device=dev, dtype=torch.int64)
+                   .to(torch.uint8) for _ in range(2))
+    ck.check("sha256", SHARDED,
+             part(lambda: torch.cat([ksha.hash_rows(rows.T),
+                                     ksha.merge(left, right)]),
+                  lambda: torch.cat([ksha.hash_rows_plain(rows.T),
+                                     ksha.merge_plain(left, right)])),
+             8 * cols * m + 32 * m + 64 * (m // 2) + 32 * (m // 2),
+             m * sha_ops(8 * cols) + m // 2 * sha_ops(64),
+             reps=2, plain_reps=2)
+    del rows, left, right
+    compare_tree(ck, SHARDED, m, min(m, SHA_SAMPLE), sha=True)
+
+
+def sharded_prove(mesh, name: str):
+    """Run on every rank: `name`'s workload (made on the rank's device)
+    proved by prove_sharded, cold then warm; the warm run's bytes, host
+    seconds, per-phase ms, launches (counts reset just before it and read
+    just after), collectives and peak device memory."""
+    import torch
+    import torch.distributed as dist
+
+    from ministark_tpu_torch.ops import build
+    from ministark_tpu_torch.parallel.prover import prove_sharded
+
+    claim, trace, opts, info = workload(name)
+    t0 = time.perf_counter()
+    prove_sharded(claim, opts, trace, mesh)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    dist.barrier()
+    reset_counts(build)
+    mesh.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    phases: list = []
+    t0 = time.perf_counter()
+    proof = prove_sharded(claim, opts, trace, mesh, phase_log=phases)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    return {"proof": proof.to_bytes(claim.fq),
+            "cold_prove_s": cold_s, "warm_prove_s": warm_s,
+            "phases": phases,
+            "launches": {k: v.launches for k, v in build.KERNELS.items()},
+            "collectives": mesh.collectives,
+            "collective_bytes": mesh.collective_bytes,
+            "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "loaded": sorted(m for m, v in sys.modules.items()
+                             if v is not None and m.split(".")[0] in (
+                                 "jax", "jaxlib", "ministark_tpu"))}
+
+
+def sharded_path(torch, build, expect: dict, claims: dict, card: str):
+    """D: fib at F's size by prove_sharded at NCCL world size 1 in this
+    process, then fib and hello_world in SHARDED_RANKS gloo ranks sharing
+    the card (spawned processes that load the libraries built in phase
+    2); every rank's bytes must equal the one-process proof of phase 5
+    (F) or 7 (W), and verify.  Returns rank 0's launches of the gloo fib
+    run."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ministark_tpu_torch.fields.scalar import Fp, Fq3
+    from ministark_tpu_torch.parallel.sharded import make_mesh
+    from ministark_tpu_torch.parallel.spawn import RankPool
+    from ministark_tpu_torch.proof import Proof
+
+    def report(what, name, runs):
+        fq = Fq3 if name == "hello" else Fp
+        for rank, r in enumerate(runs):
+            if r["proof"] != expect[name]:
+                fail(f"{what}: rank {rank}'s proof differs from the "
+                     f"one-process proof")
+            if r["loaded"]:
+                fail(f"{what}: rank {rank} imported {r['loaded']}")
+        claims[name].verify(Proof.from_bytes(runs[0]["proof"], Fp, fq),
+                            30 if name == "fib" else 96)
+        r0 = runs[0]
+        phases = {p["phase"]: round(p["device_ms"], 3) for p in r0["phases"]}
+        print(f"{what}: byte-identical to the one-process proof on "
+              f"{len(runs)} rank(s), verified; warm {r0['warm_prove_s']:.3f}"
+              f" s on rank 0 (ranks {[round(r['warm_prove_s'], 3) for r in runs]}"
+              f"), cold {r0['cold_prove_s']:.3f} s; collectives "
+              f"{r0['collectives']} a prove, {r0['collective_bytes']} bytes "
+              f"sent a rank; peak {[round(r['peak_device_gib'], 3) for r in runs]}"
+              f" GiB a rank; rank 0's phases, device ms: {phases}",
+              flush=True)
+        print(json.dumps({what: {"card": card, **{k: v for k, v in r0.items()
+                                                   if k != "proof"},
+                                 "ranks": len(runs),
+                                 "warm_prove_s_ranks": [r["warm_prove_s"]
+                                                        for r in runs],
+                                 "peak_device_gib_ranks": [
+                                     r["peak_device_gib"] for r in runs]}}),
+              flush=True)
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        mesh = make_mesh("nccl", init_method=f"file://{store}/nccl",
+                         rank=0, world_size=1)
+        try:
+            run = sharded_prove(mesh, "fib")
+        finally:
+            dist.destroy_process_group()
+        if run["collectives"] == 0:
+            fail("the NCCL world-size-1 prove made no collective")
+        report(f"{SHARDED} (NCCL, world size 1)", "fib", [run])
+        del run
+        torch.cuda.empty_cache()
+        shared = (f"{SHARDED_RANKS} gloo ranks sharing one card: a "
+                  f"shared-card gloo run through host memory, not a "
+                  f"multi-card figure")
+        with RankPool(SHARDED_RANKS, "gloo", "cuda", f"{store}/gloo",
+                      timeout=900) as pool:
+            fib_runs = pool.run(sharded_prove, "fib")
+            report(f"{SHARDED} ({shared})", "fib", fib_runs)
+            hello_runs = pool.run(sharded_prove, "hello")
+            report(f"sharded_bf_hello_world ({shared})", "hello", hello_runs)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    return read_counts_of(fib_runs[0]["launches"], SHARDED_PATH,
+                          "the sharded fib prove (rank 0)")
+
+
+def build_kernels():
+    """Build every kernel library: one nvcc a source file, and one a
+    generated evaluator (fib, brainfuck, Rescue), all started together.
+    The generated sources do not depend on the trace length (the trace
+    length and any other Pow exponent sit in the scalar table), so one AIR
+    of each kind suffices; returns those AIRs (fib, brainfuck, Rescue) at
+    the proves' sizes."""
+    from ministark_tpu_torch import eval as teval
+    from ministark_tpu_torch.air import Air, ProofOptions
+    from ministark_tpu_torch.fields.scalar import Fp
+    from ministark_tpu_torch.models.brainfuck import (BrainfuckAirConfig,
+                                                      BrainfuckClaim)
+    from ministark_tpu_torch.models.fib import FibAirConfig
+    from ministark_tpu_torch.models.rescue import RescueAirConfig
+    from ministark_tpu_torch.ops import (bigfield, build, coin,  # noqa: F401
+                                         deep, eval, inv, ntt, rpo256,
+                                         sha256, transpose)
+
+    t0 = time.perf_counter()
+    fib_air_big = Air(FibAirConfig, 1 << 21, Fp(0), ProofOptions(*FIB_OPTS))
+    bf_air_big = Air(BrainfuckAirConfig, 1 << 20,
+                     BrainfuckClaim("", b"", b""), ProofOptions(*BF_OPTS))
+    rescue_air_big = Air(RescueAirConfig, RESCUE_LINKS * 16, (0, 0, 0, 0),
+                         ProofOptions(*RESCUE_OPTS))
+    by_file = {}  # kernels that share a source file share its library
+    for k in build.KERNELS.values():
+        if k.source:
+            by_file.setdefault(k.source, k)
+    jobs = [(k, None) for k in by_file.values()]
+    jobs += [(build.KERNELS["eval"], teval._plan_for(fib_air_big)[1]),
+             (build.KERNELS["eval_ext3"], teval._plan_for(bf_air_big)[1]),
+             (build.KERNELS["eval"], teval._plan_for(rescue_air_big)[1])]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
+        list(ex.map(lambda j: j[0].build(j[1]), jobs))
+    print(f"build: {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return fib_air_big, bf_air_big, rescue_air_big
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1593,15 +1828,12 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     sys.path.insert(0, ROOT)
     try:
-        from ministark_tpu_torch import eval as teval
         from ministark_tpu_torch.air import Air, ProofOptions
         from ministark_tpu_torch.fields.scalar import Fp, Fq3
         from ministark_tpu_torch.models.brainfuck import (
             BrainfuckAirConfig, BrainfuckClaim, BrainfuckTrace, simulate)
-        from ministark_tpu_torch.models.fib import (FibAirConfig, FibClaim,
-                                                    gen_trace)
-        from ministark_tpu_torch.models.rescue import (RescueAirConfig,
-                                                       RescueClaim)
+        from ministark_tpu_torch.models.fib import FibClaim, gen_trace
+        from ministark_tpu_torch.models.rescue import RescueClaim
         from ministark_tpu_torch.models.rescue import (
             gen_trace as rescue_trace)
         from ministark_tpu_torch.ops import (bigfield, build, coin,  # noqa: F401
@@ -1634,27 +1866,7 @@ def main() -> int:
                                       fri_max_remainder_coeffs=16)
 
     # -- phase 2: build ------------------------------------------------------
-    # The generated sources do not depend on the trace length (the trace
-    # length and any other Pow exponent sit in the scalar table), so one
-    # AIR of each kind suffices.
-    t0 = time.perf_counter()
-    fib_air_big = Air(FibAirConfig, 1 << 21, Fp(0), ProofOptions(*FIB_OPTS))
-    bf_air_big = Air(BrainfuckAirConfig, 1 << 20,
-                     BrainfuckClaim("", b"", b""), ProofOptions(*BF_OPTS))
-    rescue_air_big = Air(RescueAirConfig, RESCUE_LINKS * 16, (0, 0, 0, 0),
-                         ProofOptions(*RESCUE_OPTS))
-    by_file = {}  # kernels that share a source file share its library
-    for k in build.KERNELS.values():
-        if k.source:
-            by_file.setdefault(k.source, k)
-    jobs = [(k, None) for k in by_file.values()]
-    jobs += [(build.KERNELS["eval"], teval._plan_for(fib_air_big)[1]),
-             (build.KERNELS["eval_ext3"], teval._plan_for(bf_air_big)[1]),
-             (build.KERNELS["eval"], teval._plan_for(rescue_air_big)[1])]
-    with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
-        list(ex.map(lambda j: j[0].build(j[1]), jobs))
-    print(f"build: {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    fib_air_big, bf_air_big, rescue_air_big = build_kernels()
 
     # -- phase 3: kernels against their plain versions -------------------------
     ck = Checker(torch, dev)
@@ -1755,6 +1967,7 @@ def main() -> int:
     proof, fib = prove_timed(torch, build, claim, opts, trace, FIB_PATH,
                              "the 2^24-value fib prove")
     data = proof.to_bytes(Fp)
+    one_process, one_claims = {"fib": data}, {"fib": claim}
     fib["verify_s"] = verify_and_tamper(claim, data, Fp, Fp, 30, "fib 2^24")
     print(json.dumps({FIB: {"card": card, **info, "proof_bytes": len(data),
                             **fib}}), flush=True)
@@ -1781,7 +1994,8 @@ def main() -> int:
     del info["output"]
     proof, hello = prove_timed(torch, build, claim, opts, trace, BF_PATH,
                                "the hello_world prove")
-    hello["verify_s"] = verify_and_tamper(claim, proof.to_bytes(Fq3), Fp,
+    one_process["hello"], one_claims["hello"] = proof.to_bytes(Fq3), claim
+    hello["verify_s"] = verify_and_tamper(claim, one_process["hello"], Fp,
                                           Fq3, 96, "hello_world")
     print(json.dumps({HELLO: {"card": card, **info, **hello}}), flush=True)
     del trace, claim, proof
@@ -1834,6 +2048,12 @@ def main() -> int:
     # -- phase 12: the 128- and 252-bit field vectors at 2^18 points -----------
     big = big_path(torch, build, ck)
 
+    # -- phase 13: D, the multi-process prover ------------------------------------
+    torch.cuda.empty_cache()
+    compare_sharded_kernels(ck, fib_air_big, SHARDED_RANKS)
+    torch.cuda.empty_cache()
+    sharded = sharded_path(torch, build, one_process, one_claims, card)
+
     # one entry per kernel and path: checked at that path's shapes, with
     # the launches of that path's warm run
     kernels = []
@@ -1844,7 +2064,8 @@ def main() -> int:
             (BF_RPO, BF_RPO_PATH, hello_rpo["launches"]),
             (LDE, LDE_PATH, lde["launches"]),
             (RESCUE, RESCUE_PATH, rescue["launches"]),
-            (BIG, BIG_PATH, big["launches"])):
+            (BIG, BIG_PATH, big["launches"]),
+            (SHARDED, SHARDED_PATH, sharded)):
         for name in names:
             k = build.KERNELS[name]
             src = (f"ministark_tpu_torch/csrc/{k.source}" if k.source

@@ -25,7 +25,10 @@ run through kernels B and C, the fold in plain PyTorch, row hashes and
 tree levels through kernel D (SHA-256 trees) or G (RPO-256 trees).  An
 Fq3 codeword is a (3, n) tensor; its layer rows of N elements serialize
 each element as c0 || c1 || c2, so a layer is kept as an (N, 3, n/N) Fq3
-matrix and hashed as one.  The verifier half is exact host scalar math.
+matrix and hashed as one.  Given a ``parallel.executor.ShardedExecutor``
+(SHA-256 trees), a layer's commit and fold run over the ranks where it
+supports the layer's size, on each rank's block of the codeword.  The
+verifier half is exact host scalar math.
 """
 
 from __future__ import annotations
@@ -121,9 +124,12 @@ class FriProver:
     """Builds FRI layers from the DEEP composition LDE, natural order: (n,)
     in Fp or (3, n) in Fq3; `hashfn` is the layer trees' hash."""
 
-    def __init__(self, options: FriOptions, hashfn=merkle.H):
+    def __init__(self, options: FriOptions, hashfn=merkle.H, executor=None):
         self.options = options
         self.hashfn = hashfn
+        # parallel.executor.ShardedExecutor: commits and folds run sharded
+        # where it supports the layer, on SHA-256 trees only
+        self.executor = executor if hashfn is merkle.H else None
         self.layers: list[_Layer] = []
         self.remainder_coeffs: list = []
 
@@ -136,13 +142,16 @@ class FriProver:
         if L >= 1 and step is not None:
             return self._build_layers_device_coin(channel, evals, n, N, L,
                                                   step)
+        local = False  # evals: this rank's block (sharded) or the whole
         for _ in range(L):
-            tree, rows = self._commit_layer(evals, n, N)
+            tree, rows = self._commit_layer(evals, n, N, local)
             channel.commit_fri_layer(tree.root())
             self.layers.append(_Layer(tree, rows))
             powers = alpha_powers(channel.draw_fri_alpha(), N, evals.device)
-            evals = fold_evals(evals, n, N, powers)
+            evals, local = self._fold(evals, n, N, powers, local, False)
             n //= N
+        if local:
+            evals = self.executor.gather(evals)
         self._set_remainder(channel, Domain(n).ifft(evals), n)
 
     def _build_layers_device_coin(self, channel, evals, n: int, N: int,
@@ -152,9 +161,9 @@ class FriProver:
         alphas and the remainder, and the host coin's replay."""
         k = 3 if evals.ndim == 2 else 1
         seed = kcoin.seed_tensor(channel.public_coin.seed, evals.device)
-        roots, alphas = [], []
+        roots, alphas, local = [], [], False
         for i in range(L):
-            tree, rows = self._commit_layer(evals, n, N)
+            tree, rows = self._commit_layer(evals, n, N, local)
             self.layers.append(_Layer(tree, rows))
             root = tree.levels[-1][0]
             seed, alpha, powers = step(seed, root, k, N)
@@ -162,10 +171,9 @@ class FriProver:
             alphas.append(alpha)
             # the last fold is the remainder's coefficients: no forward NTT
             # (the host path's fft is inverted straight back)
-            coeffs = fold_coeffs(evals, n, N, powers)
+            evals, local = self._fold(evals, n, N, powers, local, i == L - 1)
             n //= N
-            if i < L - 1:
-                evals = Domain(n).fft(coeffs)
+        coeffs = evals
         blob = torch.cat([torch.stack(roots).view(torch.int64).reshape(-1),
                           torch.stack(alphas).reshape(-1),
                           coeffs.reshape(-1)]).cpu()
@@ -184,9 +192,15 @@ class FriProver:
         self._set_remainder(channel, blob[4 * L + k * L:].reshape(
             coeffs.shape), n)
 
-    def _commit_layer(self, evals, n: int, N: int):
+    def _commit_layer(self, evals, n: int, N: int, local: bool = False):
         """The layer's tree and rows: bit-reversed evals chunked into rows
-        of N, a leaf a row."""
+        of N, a leaf a row.  `local`: evals is this rank's contiguous block
+        of the layer (after a sharded fold)."""
+        ex = self.executor
+        if ex is not None and ex.fri_commit_supported(n, N):
+            return ex.fri_commit_layer(evals, n, N, local)
+        if local:
+            evals = ex.gather(evals)
         bitrev = permute_bitrev(evals)
         dh = merkle.device_hash(self.hashfn)
         if evals.ndim == 1:
@@ -198,6 +212,18 @@ class FriProver:
         tree = merkle.CommittedMerkleTree.from_leaf_digests(digests,
                                                             self.hashfn)
         return tree, rows
+
+    def _fold(self, evals, n: int, N: int, powers, local: bool, last: bool):
+        """One fold: (the folded evaluations, or with `last` the folded
+        coefficients, whether that is this rank's block), sharded where
+        the executor supports the layer."""
+        ex = self.executor
+        if ex is not None and ex.fri_fold_supported(n, N):
+            return ex.fri_fold(evals, n, N, powers, local, last), not last
+        if local:
+            evals = ex.gather(evals)
+        fold = fold_coeffs if last else fold_evals
+        return fold(evals, n, N, powers), False
 
     def _set_remainder(self, channel, coeffs, n: int):
         vals = (fd.ext3_to_scalars(coeffs) if coeffs.ndim == 2
@@ -252,8 +278,16 @@ def fold_coeffs(evals: torch.Tensor, n: int, N: int,
     chunks are weighed in one product and summed by pairwise halving: a
     layer's plain torch launches do not grow with N (a product a power
     took a few hundred launches an Fq3 layer)."""
-    coeffs = Domain(n).ifft(evals).reshape(*evals.shape[:-1], n // N, N)
-    if evals.ndim == 2:  # (n/N, 3, N): components on axis -2
+    return fold_chunks(Domain(n).ifft(evals), N, powers)
+
+
+def fold_chunks(coeffs: torch.Tensor, N: int,
+                powers: torch.Tensor) -> torch.Tensor:
+    """(..., m) coefficients -> (..., m / N): each chunk of N weighed by
+    the powers of alpha and summed, scaled by N (``fold_coeffs`` after its
+    iNTT; the sharded fold runs it on each rank's block)."""
+    coeffs = coeffs.reshape(*coeffs.shape[:-1], coeffs.shape[-1] // N, N)
+    if coeffs.ndim == 3:  # (n/N, 3, N): components on axis -2
         acc = fd.sum_mod(fd.ext3_mul(coeffs.permute(1, 0, 2), powers),
                          -1).T.contiguous()
     else:

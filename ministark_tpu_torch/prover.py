@@ -10,8 +10,10 @@ witness; bit-reversed order exists only at commitment and query time.  The
 flow is one phase after another with the host coin between them; inside
 the FRI commit phase the coin runs on the device between the layers
 (``fri.FriProver``, ``ops.coin``) and the host coin replays it from the
-roots afterwards, so the layers need no transfer in between.  The bytes
-are the JAX package's.
+roots afterwards, so the layers need no transfer in between.  A Stark
+that carries a ``sharded_executor`` (``parallel.prover.prove_sharded``)
+has its LDE + commit phases and FRI layers run over the ranks of a
+process group, with SHA-256 trees.  The bytes are the JAX package's.
 """
 
 from __future__ import annotations
@@ -51,12 +53,24 @@ def default_prove(stark, options: ProofOptions, witness,
     lde_dom = air.lde_domain()
     fq_is_ext = getattr(air.config, "fq_type", None) is Fq3
 
+    # The sharded executor (parallel/executor.py), when the Stark carries
+    # one: the LDE + commit phases and the FRI layers run over the ranks of
+    # its mesh, with SHA-256 trees only.
+    executor = getattr(stark, "sharded_executor", None)
+    use_ex_commit = (executor is not None and hashfn is merkle.H
+                     and executor.commit_supported(lde_dom.size))
+
     # -- phase 1: base trace commit (src/prover.rs:45-55) --------------------
     with timer("Base trace commitment"):
         assert air.config.NUM_BASE_COLUMNS == base_trace.num_cols
-        base_polys = base_trace.interpolate(trace_dom)
-        base_lde = base_polys.evaluate(lde_dom)
-        base_tree = merkle.commit_matrix(base_lde.values, hashfn)
+        base_polys = None
+        if use_ex_commit:
+            base_lde, base_tree = executor.lde_commit_fp(
+                base_trace, trace_dom, lde_dom)
+        else:
+            base_polys = base_trace.interpolate(trace_dom)
+            base_lde = base_polys.evaluate(lde_dom)
+            base_tree = merkle.commit_matrix(base_lde.values, hashfn)
         channel.commit_base_trace(base_tree.root())
 
     challenges = Challenges(channel.public_coin.draw_multiple(air.num_challenges()))
@@ -69,9 +83,13 @@ def default_prove(stark, options: ProofOptions, witness,
         assert getattr(air.config, "NUM_EXTENSION_COLUMNS", 0) == num_ext
         ext_polys = ext_lde = ext_tree = None
         if ext_trace is not None:
-            ext_polys = ext_trace.interpolate(trace_dom)
-            ext_lde = ext_polys.evaluate(lde_dom)
-            ext_tree = merkle.commit_matrix_ext3(ext_lde.values, hashfn)
+            if use_ex_commit:
+                ext_lde, ext_tree = executor.lde_commit_ext3(
+                    ext_trace, trace_dom, lde_dom)
+            else:
+                ext_polys = ext_trace.interpolate(trace_dom)
+                ext_lde = ext_polys.evaluate(lde_dom)
+                ext_tree = merkle.commit_matrix_ext3(ext_lde.values, hashfn)
             channel.commit_extension_trace(ext_tree.root())
 
     if validate:
@@ -81,11 +99,21 @@ def default_prove(stark, options: ProofOptions, witness,
     # -- phase 3: composition trace (src/prover.rs:78-131) -------------------
     with timer("Constraint evaluation"):
         ce_dom = air.ce_domain()
-        same = ce_dom.size == lde_dom.size
-        base_ce = base_lde if same else base_polys.evaluate(ce_dom)
+        r = lde_dom.size // ce_dom.size
+
+        def on_ce(lde, polys):
+            if r == 1:
+                return lde
+            if polys is not None:
+                return polys.evaluate(ce_dom)
+            # the executor's LDE came without its coefficients: the CE
+            # domain's point j is the LDE's point j r (the same coset)
+            return type(lde)(lde.values[..., ::r].contiguous())
+
+        base_ce = on_ce(base_lde, base_polys)
         ext_ce = None
         if ext_lde is not None:
-            ext_ce = (ext_lde if same else ext_polys.evaluate(ce_dom)).values
+            ext_ce = on_ce(ext_lde, ext_polys).values
         composition_coeffs = channel.public_coin.draw_multiple(
             air.num_composition_constraint_coeffs())
         comp_evals = eval_composition(
@@ -121,7 +149,7 @@ def default_prove(stark, options: ProofOptions, witness,
         fri_prover = FriProver(FriOptions(
             folding_factor=options.fri_folding_factor,
             max_remainder_coeffs=options.fri_max_remainder_coeffs,
-            blowup_factor=options.lde_blowup_factor), hashfn)
+            blowup_factor=options.lde_blowup_factor), hashfn, executor)
         fri_prover.build_layers(channel, deep_lde)
 
     # -- phase 6: PoW + queries (src/prover.rs:157-173) ----------------------

@@ -1,6 +1,9 @@
 """Each hand-written CUDA kernel against its plain PyTorch version on the
 card, at small and awkward shapes (the prove's own shapes are checked by
-chip_smoke.py).  Integer field math: equality is exact.
+chip_smoke.py).  Integer field math: equality is exact.  The
+multi-process prover proves fib 2^10 on the card at NCCL world size 1 and
+in two gloo ranks sharing it, to the golden bytes; NCCL ranks that would
+share a card raise.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip.  Run
 them on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
@@ -551,3 +554,67 @@ def test_rescue_evaluator_matches_plain_on_card(dev, trace_len):
                                       *[a.to(dev) for a in args],
                                       launch=launch), want)
     assert build.KERNELS["eval"].launches > before
+
+
+def _build_fib_path():
+    """Every CUDA source and the fib evaluator, built in this process, so
+    that spawned ranks load the libraries and never build them."""
+    from ministark_tpu_torch import eval as teval
+    from ministark_tpu_torch.air import Air, ProofOptions
+    from ministark_tpu_torch.fields.scalar import Fp
+    from ministark_tpu_torch.models.fib import FibAirConfig
+    from ministark_tpu_torch.ops import (bigfield, build, coin,  # noqa: F401
+                                         deep, eval, inv, ntt, rpo256,
+                                         sha256, transpose)
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    air = Air(FibAirConfig, 1 << 7, Fp(0), ProofOptions(8, 4, 2, 4, 16))
+    jobs = [(k, None) for k in {k.source: k for k in build.KERNELS.values()
+                                if k.source}.values()]
+    jobs.append((build.KERNELS["eval"], teval._plan_for(air)[1]))
+    with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
+        list(ex.map(lambda j: j[0].build(j[1]), jobs))
+
+
+def test_prove_sharded_on_card(dev, tmp_path):
+    """fib 2^10 by prove_sharded: NCCL at world size 1 in this process,
+    then two gloo ranks sharing cuda:0; both give the golden bytes, and
+    every collective runs (at world size 1 each is an identity)."""
+    import os
+
+    import torch.distributed as dist
+
+    import torch_sharded_tasks as tasks
+    from ministark_tpu_torch.parallel.sharded import make_mesh
+    from ministark_tpu_torch.parallel.spawn import RankPool
+
+    with open(os.path.join(os.path.dirname(__file__), "golden",
+                           "fib_2e10.proof"), "rb") as f:
+        golden = f.read()
+    _build_fib_path()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/nccl",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        assert mesh.device.type == "cuda" and mesh.backend == "nccl"
+        one = tasks.prove(mesh, "fib")
+    finally:
+        dist.destroy_process_group()
+    assert one["proof"] == golden and one["collectives"] > 0
+    with RankPool(2, "gloo", "cuda", str(tmp_path / "gloo"),
+                  timeout=300) as pool:
+        out = pool.run(tasks.prove, "fib")
+    for r in out:
+        assert r["proof"] == golden and r["loaded"] == []
+        assert r["collectives"] == one["collectives"]
+
+
+def test_nccl_ranks_sharing_a_card_raise(dev, tmp_path):
+    import torch
+
+    from ministark_tpu_torch.parallel.spawn import RankPool
+
+    world = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match="gloo"):
+        RankPool(world, "nccl", "cuda", str(tmp_path / "store"), timeout=120)
