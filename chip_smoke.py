@@ -92,13 +92,17 @@ Phases, any failure exits non-zero:
      ``BigField.mul`` of 2^18 pairs against bigint products of a sample;
  13. D: kernel B on both slabs a rank of two gives the sharded six-step
      of the 2^23-point FRI fold, kernel C on its local transpose, kernel
-     D on a rank's 2^22 LDE rows and its subtree, each against its plain
+     D on a rank's 2^22 LDE rows and its subtree, kernel E's block entry
+     on a rank's block of the CE domain with its halo, kernel A on the
+     block's denominators and the rank's OOD weights, kernel F's DEEP sum
+     and OOD sums on the rank's 2^22 LDE rows, each against its plain
      version; then fib at 2^24 values by ``prove_sharded`` at NCCL world
      size 1 in this process, and fib and hello_world in two gloo ranks
      sharing the card (spawned; they load the libraries phase 2 built):
      every rank's bytes must equal phase 5's or phase 7's one-process
      proof and verify; cold and warm seconds, rank 0's per-phase device
-     ms and launches, collectives and bytes a prove, peak memory a rank;
+     ms and launches, collectives, bytes and the largest collective a
+     prove, every rank's peak memory beside the one-process prove's;
  14. print the card, the kernel table as one JSON line (one entry per
      kernel and path, with that path's launches), then the result.
 
@@ -149,9 +153,11 @@ BIG_PATH = ("big_mul", "big_ntt")
 # D: the multi-process prover (parallel/), fib at F's size in SHARDED_RANKS
 # gloo ranks sharing the card (and at NCCL world size 1), hello_world in
 # SHARDED_RANKS gloo ranks; its kernel rows are at the shapes a rank gives
-# them (the sharded six-step's slabs, a rank's subtree)
+# them (the sharded six-step's slabs, a rank's rows and subtree, a rank's
+# block of the CE domain)
 SHARDED = "sharded_fib_2e24"
-SHARDED_PATH = ("ntt", "transpose", "sha256", "sha256_tree")
+SHARDED_PATH = ("inv", "ntt", "transpose", "sha256", "sha256_tree", "eval",
+                "deep", "ood_sums")
 SHARDED_RANKS = 2
 BIG_LOG_N = 18  # the largest size of the reference's FFT bench
 RPO_SAMPLE = 1 << 18  # states the plain RPO permutation is compared on
@@ -1410,6 +1416,9 @@ def workload(name: str):
     ``scripts/profile_prove.py`` profiles), made through the user's entry
     points on the card:
       "fib"        fib at 2^24 values (2^21 rows x 8 columns), FIB_OPTS;
+      "fib_big"    fib at 2^29 values (2^26 rows x 8 columns), FIB_OPTS:
+                   more than one card holds in one process, for
+                   ``scripts/prove_sharded.py`` on several cards;
       "bf"         ``programs/fibonacci.bf`` with its count line cut from
                    eleven '+' to ten (2^20 rows), BF_OPTS;
       "hello"      ``programs/hello_world.bf``, BF_OPTS;
@@ -1437,10 +1446,11 @@ def workload(name: str):
         torch.cuda.synchronize()
         return RescueClaim(*seed, d0.v, d1.v), trace, ProofOptions(
             *RESCUE_OPTS), {"trace_gen_s": time.perf_counter() - t0}
-    if name in ("fib", "fib_rpo"):
+    if name in ("fib", "fib_rpo", "fib_big"):
         t0 = time.perf_counter()
-        trace = gen_trace(1 << 24)
-        claim = (FibClaim if name == "fib" else fib_rpo)(trace.last_value())
+        trace = gen_trace(1 << (29 if name == "fib_big" else 24))
+        claim = (fib_rpo if name == "fib_rpo" else FibClaim)(
+            trace.last_value())
         torch.cuda.synchronize()
         return claim, trace, ProofOptions(*FIB_OPTS), {
             "trace_gen_s": time.perf_counter() - t0}
@@ -1611,16 +1621,24 @@ def compare_sharded_kernels(ck: Checker, fib_air_big, d: int):
     kernel B on both slabs of the sharded six-step of the first FRI fold's
     inverse transform (2^23 points: (n1, n2/d) with the twiddle slab, then
     (n2, n1/d) with 1/n), kernel C on its local transpose ((d, n1/d,
-    n2/d) blocks), and kernel D on a rank's rows of the LDE (rows j = rank
+    n2/d) blocks), kernel D on a rank's rows of the LDE (rows j = rank
     mod d of the 8 columns, and a level of merges) and on a rank's whole
-    subtree."""
+    subtree, kernel E's block entry on rank 0's block of the CE domain
+    (its halo the next block's first points), kernel A on that block's
+    denominators and on the rank's OOD weights' denominators, and kernel
+    F's DEEP sum and OOD sums on the rank's LDE rows."""
     from types import SimpleNamespace
 
+    from ministark_tpu_torch import eval as teval
     from ministark_tpu_torch.fields.scalar import P
     from ministark_tpu_torch.ntt import Domain, _split_n, _stage_table
+    from ministark_tpu_torch.ops import deep as kdeep
+    from ministark_tpu_torch.ops import eval as keval
+    from ministark_tpu_torch.ops import inv as kinv
     from ministark_tpu_torch.ops import ntt as kntt
     from ministark_tpu_torch.ops import sha256 as ksha
     from ministark_tpu_torch.ops import transpose as ktr
+    from ministark_tpu_torch.parallel.executor import domain_points
     from ministark_tpu_torch.parallel.ntt import ShardedDomain
 
     torch, dev, rand = ck.torch, ck.dev, ck.rand
@@ -1669,12 +1687,72 @@ def compare_sharded_kernels(ck: Checker, fib_air_big, d: int):
     del rows, left, right
     compare_tree(ck, SHARDED, m, min(m, SHA_SAMPLE), sha=True)
 
+    # A: rank 0's CE block's denominators (one vector a denominator) and
+    # its OOD weights' denominators (y - x_i) at the three OOD points
+    plan, source, _denoms = teval._plan_for(fib_air_big)
+    ce_dom = fib_air_big.ce_domain()
+    mc, halo = ce_dom.size // d, teval.trace_halo(fib_air_big)
+    ninv = len(plan.inv_keys)
+    dens, ws = rand(ninv * mc), rand(3 * m)
+    dens[::4096] = 0
+    ck.check("inv", SHARDED,
+             [lambda: (lambda: kinv.inv_fp(dens),
+                       lambda: kinv.inv_fp_plain(dens), None),
+              lambda: (lambda: kinv.inv_fp(ws),
+                       lambda: kinv.inv_fp_plain(ws), None)],
+             16 * (ninv * mc + 3 * m),
+             (ninv * mc + 3 * m) * OPS_INV + 2 * OPS_INV_CHAIN)
+    del dens, ws
 
-def sharded_prove(mesh, name: str):
+    # E: the block entry at rank 0's block, trace columns of mc + halo
+    cb = fib_air_big.ce_blowup_factor
+    nper = len(plan.periodic)
+    args = [rand(cols, mc + halo),
+            torch.zeros((0, 3, mc + halo), dtype=torch.int64, device=dev),
+            domain_points(ce_dom, 0, 1, mc, dev)[0], rand(nper, mc),
+            rand(ninv, mc),
+            torch.zeros((0, 3, mc), dtype=torch.int64, device=dev),
+            ck.scalar_table(plan)]
+    ck.check("eval", SHARDED,
+             part(lambda: keval.eval_terms_block(plan, source, cb, *args),
+                  lambda: keval.eval_terms_plain(plan, cb, *args,
+                                                 block=True)),
+             8 * (cols * (mc + halo) + mc * (1 + nper + ninv + 1)),
+             mc * eval_ops_per_point(keval, plan))
+    del args
+
+    # F: the DEEP sum and the OOD sums on rank 0's rows j = i d of the LDE
+    # (x and g^j its own), the fib prove's terms and pairs
+    T = len(fib_air_big.trace_arguments()) + cb
+    xl, gpow = domain_points(fib_air_big.lde_domain(), 0, d, m, dev)
+    dcols = [rand(m) for _ in range(T)]
+    dinvs = rand(3, m)
+    inv_rows = list(dinvs)
+    drows = [inv_rows[t % 2 if t < T - cb else 2] for t in range(T)]
+    ds = rand(2 * T + 2)
+    ck.check("deep", SHARDED,
+             part(lambda: kdeep.deep(dcols, drows, ds, xl),
+                  lambda: kdeep.deep_plain(dcols, drows, ds, xl)),
+             8 * m * (T + 3 + 2), m * deep_ops_per_point([0] * T, 3, False))
+    del dcols
+    ocols = [rand(m) for _ in range(cols + cb)]
+    pairs = [(j, c) for c in range(cols) for j in (0, 1)]
+    pairs += [(2, cols + k) for k in range(cb)]
+    ck.check("ood_sums", SHARDED,
+             part(lambda: kdeep.ood_sums(ocols, dinvs, pairs, gpow),
+                  lambda: kdeep.ood_sums_plain(ocols, dinvs, pairs, gpow)),
+             8 * m * (cols + cb + 3 + 1),
+             m * ood_ops_per_point([0] * len(pairs), 3, False))
+    del ocols, dinvs, xl, gpow
+
+
+def sharded_prove(mesh, name: str, verify_bits: int | None = None):
     """Run on every rank: `name`'s workload (made on the rank's device)
     proved by prove_sharded, cold then warm; the warm run's bytes, host
     seconds, per-phase ms, launches (counts reset just before it and read
-    just after), collectives and peak device memory."""
+    just after), collectives and peak device memory.  With `verify_bits`
+    rank 0 also verifies its proof and rejects it with a byte flipped
+    (``verify_and_tamper``)."""
     import torch
     import torch.distributed as dist
 
@@ -1695,25 +1773,34 @@ def sharded_prove(mesh, name: str):
     proof = prove_sharded(claim, opts, trace, mesh, phase_log=phases)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    return {"proof": proof.to_bytes(claim.fq),
+    out = {}
+    if verify_bits is not None and mesh.rank == 0:
+        from ministark_tpu_torch.fields.scalar import Fp
+
+        out["verify_s"] = verify_and_tamper(claim, proof.to_bytes(claim.fq),
+                                            Fp, claim.fq, verify_bits, name)
+    return {**out, "proof": proof.to_bytes(claim.fq),
             "cold_prove_s": cold_s, "warm_prove_s": warm_s,
             "phases": phases,
             "launches": {k: v.launches for k, v in build.KERNELS.items()},
             "collectives": mesh.collectives,
             "collective_bytes": mesh.collective_bytes,
+            "max_collective_bytes": mesh.max_collective_bytes,
             "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
             "loaded": sorted(m for m, v in sys.modules.items()
                              if v is not None and m.split(".")[0] in (
                                  "jax", "jaxlib", "ministark_tpu"))}
 
 
-def sharded_path(torch, build, expect: dict, claims: dict, card: str):
+def sharded_path(torch, build, expect: dict, claims: dict, card: str,
+                 one_peak: dict):
     """D: fib at F's size by prove_sharded at NCCL world size 1 in this
     process, then fib and hello_world in SHARDED_RANKS gloo ranks sharing
     the card (spawned processes that load the libraries built in phase
     2); every rank's bytes must equal the one-process proof of phase 5
-    (F) or 7 (W), and verify.  Returns rank 0's launches of the gloo fib
-    run."""
+    (F) or 7 (W), and verify; every rank's peak memory is printed beside
+    the one-process prove's (`one_peak`).  Returns rank 0's launches of
+    the gloo fib run."""
     import shutil
     import tempfile
 
@@ -1741,8 +1828,10 @@ def sharded_path(torch, build, expect: dict, claims: dict, card: str):
               f" s on rank 0 (ranks {[round(r['warm_prove_s'], 3) for r in runs]}"
               f"), cold {r0['cold_prove_s']:.3f} s; collectives "
               f"{r0['collectives']} a prove, {r0['collective_bytes']} bytes "
-              f"sent a rank; peak {[round(r['peak_device_gib'], 3) for r in runs]}"
-              f" GiB a rank; rank 0's phases, device ms: {phases}",
+              f"sent a rank, the largest {r0['max_collective_bytes']}; peak "
+              f"{[round(r['peak_device_gib'], 3) for r in runs]} GiB a rank "
+              f"(the one-process prove: {one_peak[name]:.3f} GiB); rank 0's "
+              f"phases, device ms: {phases}",
               flush=True)
         print(json.dumps({what: {"card": card, **{k: v for k, v in r0.items()
                                                    if k != "proof"},
@@ -2052,7 +2141,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     compare_sharded_kernels(ck, fib_air_big, SHARDED_RANKS)
     torch.cuda.empty_cache()
-    sharded = sharded_path(torch, build, one_process, one_claims, card)
+    sharded = sharded_path(torch, build, one_process, one_claims, card,
+                           {"fib": fib["peak_device_gib"],
+                            "hello": hello["peak_device_gib"]})
 
     # one entry per kernel and path: checked at that path's shapes, with
     # the launches of that path's warm run

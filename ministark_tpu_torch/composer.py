@@ -92,14 +92,22 @@ class DeepPolyComposer:
             return self.base_lde.values[col]
         return self.extension_lde.values[col - nb]
 
+    def _points(self, device) -> tuple:
+        """(x_i, g^i) at the LDE rows the columns hold: all of them, in
+        natural order (``parallel.composer`` takes a rank's share)."""
+        dom = self.lde_dom
+        return dom.elements(device), powers(dom.group_gen, dom.size, device)
+
+    def _total(self, sums: torch.Tensor) -> torch.Tensor:
+        """The OOD sums over every row from the sums over the rows held."""
+        return sums
+
     def get_ood_evals(self):
         """(execution trace OOD evals, composition trace OOD evals)."""
         trace_pts = self._trace_points()
         keys, vals = self._distinct_points()
-        dom = self.lde_dom
         dev = self.base_lde.device
-        x = dom.elements(dev)
-        gpow = powers(dom.group_gen, dom.size, dev)
+        x, gpow = self._points(dev)
         if self.ext:
             ys = fd.ext3_table(vals, dev).reshape(-1, 3, 1)
             invs = fd.ext3_batch_inv(fd.sub(ys, fd.ext3_from_base(x)))
@@ -120,11 +128,11 @@ class DeepPolyComposer:
                        key=lambda jc: (jc[1], jc[0]))
         pairs += [(len(keys) - 1, len(cols) - ncomp + k) for k in range(ncomp)]
         if self.ext:
-            sums = fd.ext3_to_scalars(kdeep.ood_sums_ext3(cols, invs, pairs,
-                                                          gpow))
+            sums = fd.ext3_to_scalars(self._total(
+                kdeep.ood_sums_ext3(cols, invs, pairs, gpow)))
         else:
-            sums = [Fp(v) for v in fd.to_ints(kdeep.ood_sums(cols, invs, pairs,
-                                                              gpow))]
+            sums = [Fp(v) for v in fd.to_ints(self._total(
+                kdeep.ood_sums(cols, invs, pairs, gpow)))]
         by_pair = dict(zip(pairs, sums))
         scales = [self._scale_of(y) for y in vals]
 
@@ -134,14 +142,14 @@ class DeepPolyComposer:
             execution_oods.append(by_pair[(j, col)] * scales[j])
         composition_oods = [v * scales[-1] for v in sums[len(sums) - ncomp:]]
         self._cache = (trace_pts, keys, invs, execution_oods,
-                       composition_oods)
+                       composition_oods, x)
         return execution_oods, composition_oods
 
     def deep_lde(self, coeffs: DeepCompositionCoeffs) -> torch.Tensor:
         """The DEEP composition over the LDE domain, natural order: (n,)
         for an Fp transcript, (3, n) for an Fq3 one."""
         assert self._cache is not None, "call get_ood_evals first"
-        trace_pts, keys, invs, exec_oods, comp_oods = self._cache
+        trace_pts, keys, invs, exec_oods, comp_oods, x = self._cache
         comp = self.composition_lde.values
         dev = comp.device
         # one view a column and a point, shared by their terms
@@ -158,7 +166,6 @@ class DeepPolyComposer:
             inv_rows.append(rows[-1])
             svals += [comp_oods[k], coeffs.composition_trace[k]]
         svals += [coeffs.degree[0], coeffs.degree[1]]
-        x = self.lde_dom.elements(dev)
         if self.ext:
             s = fd.ext3_table(svals, dev)
             return kdeep.deep_ext3(cols, inv_rows, s, x)

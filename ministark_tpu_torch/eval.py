@@ -7,6 +7,12 @@ evaluated by the kernels generated from the AIR's DAG (``ops/eval.py``,
 kernel E).  Denominators, like the periodic columns, are evaluated with
 plain PyTorch field ops, as the JAX package leaves them to XLA.  Field
 arithmetic is exact, so the values equal the JAX package's.
+
+``eval_composition_block`` evaluates a contiguous block of the CE domain
+(the multi-process prover's, ``parallel``) from trace columns that hold
+the block's points and the halo after them (``trace_halo``): the block's
+x gives the periodic columns, the denominators and the shared powers of X
+the values the whole domain's x gives at those points.
 """
 
 from __future__ import annotations
@@ -84,9 +90,16 @@ def evaluate_dag(expr, ctx):
     """Plain PyTorch evaluation of a DAG over the CE domain -> (kind,
     tensor): (n,) for "fp", (3, n) for "fq".  Constant subtrees fold on the
     host.  ctx: x, trace (nbase, n), ext (next, 3, n), ce_blowup, trace_len,
-    challenges, hints, composition_coeffs."""
+    challenges, hints, composition_coeffs, and block: where true, trace and
+    ext hold the n points of x and a halo after them, read with no wrap."""
     x = ctx["x"]
     nb = ctx["trace"].shape[0]
+    n = x.shape[0]
+
+    def shifted(col, shift):
+        if ctx.get("block"):
+            return col[..., -shift:n - shift]
+        return torch.roll(col, shift, dims=-1)
 
     def leaf_value(leaf):
         if isinstance(leaf, X):
@@ -102,9 +115,8 @@ def evaluate_dag(expr, ctx):
         if isinstance(leaf, Trace):
             shift = -ctx["ce_blowup"] * leaf.offset
             if leaf.column < nb:
-                return "fp", torch.roll(ctx["trace"][leaf.column], shift)
-            return "fq", torch.roll(ctx["ext"][leaf.column - nb], shift,
-                                    dims=-1)
+                return "fp", shifted(ctx["trace"][leaf.column], shift)
+            return "fq", shifted(ctx["ext"][leaf.column - nb], shift)
         if isinstance(leaf, Periodic):
             return "fp", periodic_values(leaf, x, ctx["trace_len"])
         raise TypeError(f"unknown leaf {leaf!r}")
@@ -136,7 +148,6 @@ def evaluate_dag(expr, ctx):
                                         None if b is None else tagged(b),
                                         node.exp)
     kind, v = tagged(memo[id(expr)])
-    n = x.shape[0]
     return kind, v.expand(*v.shape[:-1], n) if v.shape[-1:] != (n,) else v
 
 
@@ -191,6 +202,16 @@ def _plan_for(air):
     return _PLAN_CACHE[key]
 
 
+def trace_halo(air) -> int | None:
+    """CE points a block reads past its end: ce_blowup times the largest
+    trace offset of the air's constraints, or None where one offset is
+    negative (a block would read before its start)."""
+    offsets = [off for _col, off in air.trace_arguments()] or [0]
+    if min(offsets) < 0:
+        return None
+    return air.ce_blowup_factor * max(offsets)
+
+
 def eval_composition(air, composition_coeffs, challenges, hints, x, trace,
                      ext=None):
     """The air's composition constraint over the CE domain.
@@ -199,11 +220,30 @@ def eval_composition(air, composition_coeffs, challenges, hints, x, trace,
     base-trace values; ext: (next, 3, n) extension-trace values, or None.
     Returns the (n,) composition evaluations of an Fp AIR, (3, n) of an
     Fq3 one."""
+    return _eval(air, composition_coeffs, challenges, hints, x, trace, ext,
+                 False)
+
+
+def eval_composition_block(air, composition_coeffs, challenges, hints, x,
+                           trace, ext=None):
+    """The composition constraint at a contiguous block of m CE points.
+
+    x: (m,) the block's points; trace: (nbase, m + h) the base-trace values
+    at the block's points and at the h = ``trace_halo(air)`` points after
+    it (wrapping round the domain); ext: (next, 3, m + h) the same of the
+    extension trace, or None.  Returns (m,) or (3, m): the slice of
+    ``eval_composition``'s values at the block."""
+    return _eval(air, composition_coeffs, challenges, hints, x, trace, ext,
+                 True)
+
+
+def _eval(air, composition_coeffs, challenges, hints, x, trace, ext, block):
     plan, source, denom_by_key = _plan_for(air)
     n, dev = x.shape[0], x.device
     if ext is None:
-        ext = torch.zeros((0, 3, n), dtype=torch.int64, device=dev)
-    ctx = {"x": x, "trace": trace, "ext": ext,
+        ext = torch.zeros((0, 3, trace.shape[-1]), dtype=torch.int64,
+                          device=dev)
+    ctx = {"x": x, "trace": trace, "ext": ext, "block": block,
            "ce_blowup": air.ce_blowup_factor, "trace_len": air.trace_len,
            "challenges": challenges, "hints": hints,
            "composition_coeffs": composition_coeffs}
@@ -220,5 +260,6 @@ def eval_composition(air, composition_coeffs, challenges, hints, x, trace,
                         for p in plan.periodic]) if plan.periodic
            else torch.zeros((0, n), dtype=torch.int64, device=dev))
     s = keval.scalar_table(plan, challenges, hints, composition_coeffs, dev)
-    return keval.eval_terms(plan, source, air.ce_blowup_factor, trace, ext,
-                            x, per, inv, inv3, s)
+    run = keval.eval_terms_block if block else keval.eval_terms
+    return run(plan, source, air.ce_blowup_factor, trace, ext, x, per, inv,
+               inv3, s)

@@ -27,8 +27,13 @@ Fq3 codeword is a (3, n) tensor; its layer rows of N elements serialize
 each element as c0 || c1 || c2, so a layer is kept as an (N, 3, n/N) Fq3
 matrix and hashed as one.  Given a ``parallel.executor.ShardedExecutor``
 (SHA-256 trees), a layer's commit and fold run over the ranks where it
-supports the layer's size, on each rank's block of the codeword.  The
-verifier half is exact host scalar math.
+supports the layer's size, on each rank's share of the codeword: the
+first layer's cyclic share (rows j = rank mod d, from the sharded DEEP
+composition), a later layer's contiguous block; each rank keeps its
+share of the layer's tree and rows, and the decommit fetches the queried
+ones from their owners.  Where the executor does not support a layer,
+the codeword is gathered whole first.  The verifier half is exact host
+scalar math.
 """
 
 from __future__ import annotations
@@ -112,6 +117,8 @@ class _Layer:
 
     def rows_at(self, positions: list[int]) -> list:
         """The rows at `positions`, flattened (N values per row)."""
+        if not isinstance(self.rows, torch.Tensor):  # a rank's share
+            return self.rows.rows_at(positions)
         idx = torch.tensor(positions, dtype=torch.int64,
                            device=self.rows.device)
         if self.rows.ndim == 2:
@@ -133,37 +140,41 @@ class FriProver:
         self.layers: list[_Layer] = []
         self.remainder_coeffs: list = []
 
-    def build_layers(self, channel, evals: torch.Tensor):
+    def build_layers(self, channel, evals: torch.Tensor,
+                     cyclic: bool = False):
+        """Commit every layer and the remainder.  evals: the whole codeword,
+        or (`cyclic`, with an executor) this rank's share of it, the
+        evaluations j = rank (mod d)."""
         assert not self.layers
-        n = evals.shape[-1]
+        layout = "cyclic" if cyclic else "whole"
+        n = evals.shape[-1] * (self.executor.d if cyclic else 1)
         N = self.options.folding_factor
         L = self.options.num_layers(n)
         step = device_coin_step(channel.public_coin.hashfn, self.hashfn)
         if L >= 1 and step is not None:
             return self._build_layers_device_coin(channel, evals, n, N, L,
-                                                  step)
-        local = False  # evals: this rank's block (sharded) or the whole
+                                                  step, layout)
         for _ in range(L):
-            tree, rows = self._commit_layer(evals, n, N, local)
+            tree, rows = self._commit_layer(evals, n, N, layout)
             channel.commit_fri_layer(tree.root())
             self.layers.append(_Layer(tree, rows))
             powers = alpha_powers(channel.draw_fri_alpha(), N, evals.device)
-            evals, local = self._fold(evals, n, N, powers, local, False)
+            evals, layout = self._fold(evals, n, N, powers, layout, False)
             n //= N
-        if local:
-            evals = self.executor.gather(evals)
+        if layout != "whole":
+            evals = self.executor.whole(evals, layout)
         self._set_remainder(channel, Domain(n).ifft(evals), n)
 
     def _build_layers_device_coin(self, channel, evals, n: int, N: int,
-                                  L: int, step):
+                                  L: int, step, layout: str = "whole"):
         """Every layer's commit, coin step and fold queued on the device
         with no transfer in between; then one copy of the roots, the
         alphas and the remainder, and the host coin's replay."""
         k = 3 if evals.ndim == 2 else 1
         seed = kcoin.seed_tensor(channel.public_coin.seed, evals.device)
-        roots, alphas, local = [], [], False
+        roots, alphas = [], []
         for i in range(L):
-            tree, rows = self._commit_layer(evals, n, N, local)
+            tree, rows = self._commit_layer(evals, n, N, layout)
             self.layers.append(_Layer(tree, rows))
             root = tree.levels[-1][0]
             seed, alpha, powers = step(seed, root, k, N)
@@ -171,7 +182,8 @@ class FriProver:
             alphas.append(alpha)
             # the last fold is the remainder's coefficients: no forward NTT
             # (the host path's fft is inverted straight back)
-            evals, local = self._fold(evals, n, N, powers, local, i == L - 1)
+            evals, layout = self._fold(evals, n, N, powers, layout,
+                                       i == L - 1)
             n //= N
         coeffs = evals
         blob = torch.cat([torch.stack(roots).view(torch.int64).reshape(-1),
@@ -192,15 +204,16 @@ class FriProver:
         self._set_remainder(channel, blob[4 * L + k * L:].reshape(
             coeffs.shape), n)
 
-    def _commit_layer(self, evals, n: int, N: int, local: bool = False):
+    def _commit_layer(self, evals, n: int, N: int, layout: str = "whole"):
         """The layer's tree and rows: bit-reversed evals chunked into rows
-        of N, a leaf a row.  `local`: evals is this rank's contiguous block
-        of the layer (after a sharded fold)."""
+        of N, a leaf a row.  `layout` (``parallel.executor``): evals is
+        the whole layer, or this rank's contiguous block of it (after a
+        sharded fold) or its cyclic share (from a sharded DEEP)."""
         ex = self.executor
         if ex is not None and ex.fri_commit_supported(n, N):
-            return ex.fri_commit_layer(evals, n, N, local)
-        if local:
-            evals = ex.gather(evals)
+            return ex.fri_commit_layer(evals, n, N, layout)
+        if layout != "whole":
+            evals = ex.whole(evals, layout)
         bitrev = permute_bitrev(evals)
         dh = merkle.device_hash(self.hashfn)
         if evals.ndim == 1:
@@ -213,17 +226,18 @@ class FriProver:
                                                             self.hashfn)
         return tree, rows
 
-    def _fold(self, evals, n: int, N: int, powers, local: bool, last: bool):
+    def _fold(self, evals, n: int, N: int, powers, layout: str, last: bool):
         """One fold: (the folded evaluations, or with `last` the folded
-        coefficients, whether that is this rank's block), sharded where
-        the executor supports the layer."""
+        coefficients, and their layout: this rank's block, or whole),
+        sharded where the executor supports the layer."""
         ex = self.executor
         if ex is not None and ex.fri_fold_supported(n, N):
-            return ex.fri_fold(evals, n, N, powers, local, last), not last
-        if local:
-            evals = ex.gather(evals)
+            return (ex.fri_fold(evals, n, N, powers, layout, last),
+                    "whole" if last else "block")
+        if layout != "whole":
+            evals = ex.whole(evals, layout)
         fold = fold_coeffs if last else fold_evals
-        return fold(evals, n, N, powers), False
+        return fold(evals, n, N, powers), "whole"
 
     def _set_remainder(self, channel, coeffs, n: int):
         vals = (fd.ext3_to_scalars(coeffs) if coeffs.ndim == 2

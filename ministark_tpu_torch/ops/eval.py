@@ -28,6 +28,15 @@ CE points a launch a group adds into the output; below, one launch runs
 every group (a grid row a group) into parts that a second launch sums.  A
 host loop lets g++ build the same code for the CPU tests.
 
+Two entries share the source.  The whole-domain entry (``eval_terms``)
+reads a trace column of n points at (i + s) & (n - 1).  The block entry
+(``eval_terms_block``) evaluates m points of a contiguous block of the CE
+domain from trace columns of m + halo points (the block's and the halo
+after it, halo = ce_blowup * the largest offset): it reads (i + s) with
+no wrap, the columns' stride ld = m + halo and the mask all ones, so the
+same group functions serve both.  X, the periodic columns and the
+inverses are the block's own m points.
+
 Powers of X.  The degree adjustments x^e grow with the trace length N:
 at N = 2^20 brainfuck's are e = a N + b with a < 16 and b < 12, or b =
 N - 1; a periodic column of interval d adds multiples of N/d (the Rescue
@@ -460,12 +469,12 @@ def _generate_group(plan: Plan, ce_blowup: int, g: int) -> str:
         slot = plan.slot.get(_leaf_key(leaf))
         if isinstance(leaf, X):
             return "fp", "xi"
-        if isinstance(leaf, Trace):
+        if isinstance(leaf, Trace):  # columns of ld points
             idx = f"(i + ({ce_blowup * leaf.offset}LL)) & mask"
             if leaf.column < plan.num_base:
-                return var("fp", f"trace[{leaf.column}LL * n + ({idx})]")
+                return var("fp", f"trace[{leaf.column}LL * ld + ({idx})]")
             e = leaf.column - plan.num_base
-            return var("fq", f"gl3_load(ext + {3 * e}LL * n, {idx}, n)")
+            return var("fq", f"gl3_load(ext + {3 * e}LL * ld, {idx}, ld)")
         if isinstance(leaf, Periodic):
             return var("fp", f"per[{slot}LL * n + i]")
         if isinstance(leaf, _InvInput):
@@ -501,9 +510,8 @@ def _generate_group(plan: Plan, ce_blowup: int, g: int) -> str:
     powers, _n = _powers_source(plan, used)
     return f"""
 // terms {start}..{stop - 1}
-GL_HD {ctype} ms_eval_group{g}(int64_t i, int64_t n, {_ARGS},
-                               const uint64_t* pw) {{
-    const int64_t mask = n - 1;
+GL_HD {ctype} ms_eval_group{g}(int64_t i, int64_t n, int64_t ld,
+                               int64_t mask, {_ARGS}, const uint64_t* pw) {{
     const uint64_t xi = x[i];
     (void)mask; (void)xi; (void)pw;
 {body}
@@ -540,7 +548,8 @@ def generate_source(plan: Plan, ce_blowup: int) -> str:
     one = "\n    else ".join(
         f"if constexpr (G == {g}) {{\n"
         f"        ms_eval_powers{g}(xi, y, r, pw);\n"
-        f"        v = ms_eval_group{g}(i, n, {_ARG_NAMES}, pw);\n    }}"
+        f"        v = ms_eval_group{g}(i, n, ld, mask, {_ARG_NAMES}, pw);"
+        f"\n    }}"
         for g in range(G))
 
     def cases(indent, fmt):
@@ -568,10 +577,11 @@ GL_HD void ms_eval_powers(uint64_t x, uint64_t y, uint64_t r, uint64_t* pw) {{
 {all_powers}
 }}
 {groups}
-// group G at point i, its powers from y and r
+// group G at point i, its powers from y and r; the trace columns hold ld
+// points, read at (i + offset) & mask
 template <int G>
-GL_HD {ctype} ms_eval_one(int64_t i, int64_t n, {_ARGS}, uint64_t y,
-                          uint64_t r) {{
+GL_HD {ctype} ms_eval_one(int64_t i, int64_t n, int64_t ld, int64_t mask,
+                          {_ARGS}, uint64_t y, uint64_t r) {{
     const uint64_t xi = x[i];
     uint64_t pw[MS_EVAL_POWERS];
     {ctype} v = {zero};
@@ -580,10 +590,10 @@ GL_HD {ctype} ms_eval_one(int64_t i, int64_t n, {_ARGS}, uint64_t y,
 }}
 
 // group g at point i (g at run time)
-GL_HD {ctype} ms_eval_any(int g, int64_t i, int64_t n, {_ARGS}, uint64_t y,
-                          uint64_t r) {{
+GL_HD {ctype} ms_eval_any(int g, int64_t i, int64_t n, int64_t ld,
+                          int64_t mask, {_ARGS}, uint64_t y, uint64_t r) {{
     switch (g) {{
-{cases("    ", "return ms_eval_one<{g}>(i, n, " + _ARG_NAMES + ", y, r);")}
+{cases("    ", "return ms_eval_one<{g}>(i, n, ld, mask, " + _ARG_NAMES + ", y, r);")}
     }}
     return {zero};
 }}
@@ -598,8 +608,8 @@ GL_HD {ctype} ms_eval_any(int g, int64_t i, int64_t n, {_ARGS}, uint64_t y,
 template <int G>
 __global__ void __launch_bounds__(MS_EVAL_THREADS)
     ms_eval_group_kernel({_ARGS}, const uint64_t* __restrict__ yr,
-                         uint64_t* __restrict__ out, int64_t n,
-                         int accumulate) {{
+                         uint64_t* __restrict__ out, int64_t n, int64_t ld,
+                         int64_t mask, int accumulate) {{
     for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
          i += (int64_t)gridDim.x * blockDim.x) {{
         uint64_t y, r;
@@ -609,7 +619,7 @@ __global__ void __launch_bounds__(MS_EVAL_THREADS)
         }} else {{
             ms_eval_chain(x[i], s, &y, &r);
         }}
-        {ctype} v = ms_eval_one<G>(i, n, {_ARG_NAMES}, y, r);
+        {ctype} v = ms_eval_one<G>(i, n, ld, mask, {_ARG_NAMES}, y, r);
         if (accumulate) v = {add}(v, {load("out")});
         {store("out", "v")}
     }}
@@ -618,14 +628,15 @@ __global__ void __launch_bounds__(MS_EVAL_THREADS)
 // every group in one launch, group blockIdx.y into its part of `part`
 // ((groups, planes, n)), the chain at each point
 __global__ void __launch_bounds__(MS_EVAL_THREADS)
-    ms_eval_grid_kernel({_ARGS}, uint64_t* __restrict__ part, int64_t n) {{
+    ms_eval_grid_kernel({_ARGS}, uint64_t* __restrict__ part, int64_t n,
+                        int64_t ld, int64_t mask) {{
     const int g = blockIdx.y;
     uint64_t* dst = part + (int64_t)g * MS_EVAL_PLANES * n;
     for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
          i += (int64_t)gridDim.x * blockDim.x) {{
         uint64_t y, r;
         ms_eval_chain(x[i], s, &y, &r);
-        const {ctype} v = ms_eval_any(g, i, n, {_ARG_NAMES}, y, r);
+        const {ctype} v = ms_eval_any(g, i, n, ld, mask, {_ARG_NAMES}, y, r);
         {store("dst", "v")}
     }}
 }}
@@ -657,24 +668,51 @@ MS_API int ms_eval_chain_pass(const uint64_t* x, const uint64_t* s,
     return ms_last_error();
 }}
 
-MS_API int ms_eval_group(int g, {_ARGS}, const uint64_t* yr, uint64_t* out,
-                         int64_t n, int accumulate, cudaStream_t stream) {{
+static int ms_eval_group_at(int g, {_ARGS}, const uint64_t* yr,
+                            uint64_t* out, int64_t n, int64_t ld,
+                            int64_t mask, int accumulate,
+                            cudaStream_t stream) {{
     if (n <= 0) return ms_last_error();
     const unsigned grid = ms_blocks(n, MS_EVAL_THREADS);
     switch (g) {{
-{cases("    ", "ms_eval_group_kernel<{g}><<<grid, MS_EVAL_THREADS, 0, stream>>>(" + _ARG_NAMES + ", yr, out, n, accumulate);")}
+{cases("    ", "ms_eval_group_kernel<{g}><<<grid, MS_EVAL_THREADS, 0, stream>>>(" + _ARG_NAMES + ", yr, out, n, ld, mask, accumulate);")}
     default: return (int)cudaErrorInvalidValue;
     }}
     return ms_last_error();
 }}
 
-MS_API int ms_eval_grid({_ARGS}, uint64_t* part, int64_t n,
-                        cudaStream_t stream) {{
+static int ms_eval_grid_at({_ARGS}, uint64_t* part, int64_t n, int64_t ld,
+                           int64_t mask, cudaStream_t stream) {{
     if (n > 0)
         ms_eval_grid_kernel<<<dim3(ms_blocks(n, MS_EVAL_THREADS),
                                    MS_EVAL_GROUPS), MS_EVAL_THREADS, 0,
-                              stream>>>({_ARG_NAMES}, part, n);
+                              stream>>>({_ARG_NAMES}, part, n, ld, mask);
     return ms_last_error();
+}}
+
+// the whole CE domain: columns of n points, read modulo n
+MS_API int ms_eval_group(int g, {_ARGS}, const uint64_t* yr, uint64_t* out,
+                         int64_t n, int accumulate, cudaStream_t stream) {{
+    return ms_eval_group_at(g, {_ARG_NAMES}, yr, out, n, n, n - 1,
+                            accumulate, stream);
+}}
+
+MS_API int ms_eval_grid({_ARGS}, uint64_t* part, int64_t n,
+                        cudaStream_t stream) {{
+    return ms_eval_grid_at({_ARG_NAMES}, part, n, n, n - 1, stream);
+}}
+
+// a block of n points: columns of ld = n + halo points, read with no wrap
+MS_API int ms_eval_group_block(int g, {_ARGS}, const uint64_t* yr,
+                               uint64_t* out, int64_t n, int64_t ld,
+                               int accumulate, cudaStream_t stream) {{
+    return ms_eval_group_at(g, {_ARG_NAMES}, yr, out, n, ld, -1, accumulate,
+                            stream);
+}}
+
+MS_API int ms_eval_grid_block({_ARGS}, uint64_t* part, int64_t n, int64_t ld,
+                              cudaStream_t stream) {{
+    return ms_eval_grid_at({_ARG_NAMES}, part, n, ld, -1, stream);
 }}
 
 MS_API int ms_eval_sum(const uint64_t* part, uint64_t* out, int64_t n,
@@ -686,15 +724,17 @@ MS_API int ms_eval_sum(const uint64_t* part, uint64_t* out, int64_t n,
 }}
 #else
 // the launch-a-group kernels' sum (groups = 1), or the one launch's parts
-// and their sum (groups = 0): the chain at each point
-extern "C" void ms_eval_host({_ARGS}, uint64_t* part, uint64_t* out,
-                             int64_t n, int groups) {{
+// and their sum (groups = 0): the chain at each point; trace columns of ld
+// points read at (i + offset) & mask
+static void ms_eval_host_at({_ARGS}, uint64_t* part, uint64_t* out,
+                            int64_t n, int64_t ld, int64_t mask,
+                            int groups) {{
     for (int g = 0; g < MS_EVAL_GROUPS; g++) {{
         uint64_t* dst = groups ? out : part + (int64_t)g * MS_EVAL_PLANES * n;
         for (int64_t i = 0; i < n; i++) {{
             uint64_t y, r;
             ms_eval_chain(x[i], s, &y, &r);
-            {ctype} v = ms_eval_any(g, i, n, {_ARG_NAMES}, y, r);
+            {ctype} v = ms_eval_any(g, i, n, ld, mask, {_ARG_NAMES}, y, r);
             if (groups && g > 0) v = {add}(v, {load("out")});
             {store("dst", "v")}
         }}
@@ -706,6 +746,18 @@ extern "C" void ms_eval_host({_ARGS}, uint64_t* part, uint64_t* out,
                 v = {add}(v, {load("(part + (int64_t)g * MS_EVAL_PLANES * n)")});
             {store("out", "v")}
         }}
+}}
+
+// the whole CE domain (ms_eval_group / ms_eval_grid)
+extern "C" void ms_eval_host({_ARGS}, uint64_t* part, uint64_t* out,
+                             int64_t n, int groups) {{
+    ms_eval_host_at({_ARG_NAMES}, part, out, n, n, n - 1, groups);
+}}
+
+// a block of n points from columns of ld points (the _block entries)
+extern "C" void ms_eval_host_block({_ARGS}, uint64_t* part, uint64_t* out,
+                                   int64_t n, int64_t ld, int groups) {{
+    ms_eval_host_at({_ARG_NAMES}, part, out, n, ld, -1, groups);
 }}
 
 // pw[k m + j] = the k-th shared power of x[j]
@@ -752,13 +804,17 @@ def tagged_op(op: str, a, b, exp):
 
 
 def eval_terms_plain(plan: Plan, ce_blowup: int, trace, ext, x, per, inv,
-                     inv3, s, points: tuple[int, int] | None = None):
+                     inv3, s, points: tuple[int, int] | None = None,
+                     block: bool = False):
     """The same sum in plain PyTorch over the CE domain, or over the CE
     points [start, stop) when `points` is given (the same values as that
-    slice of the whole, for less memory)."""
+    slice of the whole, for less memory).  With `block`, x, per, inv and
+    inv3 are a block's n points and the trace columns hold them and the
+    halo after them, read with no wrap (``eval_terms_block``)."""
     n = x.shape[0]
     a, b = points if points is not None else (0, n)
     pos = torch.arange(a, b, device=x.device)
+    mask = -1 if block else n - 1
     svals = s.tolist()
 
     def leaf_fn(leaf):
@@ -766,7 +822,7 @@ def eval_terms_plain(plan: Plan, ce_blowup: int, trace, ext, x, per, inv,
         if isinstance(leaf, X):
             return "fp", x[a:b]
         if isinstance(leaf, Trace):
-            idx = (pos + ce_blowup * leaf.offset) & (n - 1)
+            idx = (pos + ce_blowup * leaf.offset) & mask
             if leaf.column < plan.num_base:
                 return "fp", trace[leaf.column].index_select(0, idx)
             return "fq", ext[leaf.column - plan.num_base].index_select(1, idx)
@@ -808,6 +864,33 @@ def eval_terms(plan: Plan, source: str, ce_blowup: int, trace, ext, x, per,
     if not x.is_cuda:
         return eval_terms_plain(plan, ce_blowup, trace, ext, x, per, inv,
                                 inv3, s)
+    return _launch(plan, source, trace, ext, x, per, inv, inv3, s, launch,
+                   None)
+
+
+def eval_terms_block(plan: Plan, source: str, ce_blowup: int, trace, ext, x,
+                     per, inv, inv3, s, launch: str | None = None):
+    """The block entry: the composition sum at m points of a contiguous
+    block of the CE domain, x (m,), per (nper, m), inv (ninv, m), inv3
+    (ninv3, 3, m) the block's own, trace (nbase, m + halo) and ext (next,
+    3, m + halo) the block's points and the halo after them, read with no
+    wrap.  Returns (m,) or (3, m).  CUDA tensors launch the kernels of the
+    same generated source; CPU tensors take the plain version."""
+    m = x.shape[0]
+    ld = trace.shape[-1] if trace.shape[0] else ext.shape[-1]
+    if ld < m or (ext.shape[0] and ext.shape[-1] != ld):
+        raise ValueError(f"eval_terms_block: trace columns of {ld} points "
+                         f"for a block of {m}")
+    if not x.is_cuda:
+        return eval_terms_plain(plan, ce_blowup, trace, ext, x, per, inv,
+                                inv3, s, block=True)
+    return _launch(plan, source, trace, ext, x, per, inv, inv3, s, launch,
+                   ld)
+
+
+def _launch(plan, source, trace, ext, x, per, inv, inv3, s, launch, ld):
+    """Kernel E over x's n points: the whole-domain entry (ld None) or the
+    block entry of trace columns of ld points."""
     n = x.shape[0]
     args = []
     for name, t in (("trace", trace), ("ext", ext), ("x", x), ("per", per),
@@ -819,12 +902,14 @@ def eval_terms(plan: Plan, source: str, ce_blowup: int, trace, ext, x, per,
     shape = (3, n) if plan.fq_is_ext else (n,)
     out = torch.empty(shape, dtype=torch.int64, device=x.device)
     ptrs = [build.ptr(t) for t in args]
+    block = () if ld is None else (build.i64(ld),)
+    suffix = "" if ld is None else "_block"
     G = len(plan.groups)
     if (launch or eval_launch(n)) == "grid":
         part = (out if G == 1 else
                 torch.empty((G, *shape), dtype=torch.int64, device=x.device))
-        kernel.launch("ms_eval_grid", *ptrs, build.ptr(part), build.i64(n),
-                      source_text=source)
+        kernel.launch("ms_eval_grid" + suffix, *ptrs, build.ptr(part),
+                      build.i64(n), *block, source_text=source)
         if G > 1:
             kernel.launch("ms_eval_sum", build.ptr(part), build.ptr(out),
                           build.i64(n), source_text=source)
@@ -835,7 +920,7 @@ def eval_terms(plan: Plan, source: str, ce_blowup: int, trace, ext, x, per,
         kernel.launch("ms_eval_chain_pass", ptrs[2], ptrs[6], build.ptr(yr),
                       build.i64(n), source_text=source)
     for g in range(G):
-        kernel.launch("ms_eval_group", build.c_int(g), *ptrs,
+        kernel.launch("ms_eval_group" + suffix, build.c_int(g), *ptrs,
                       build.ptr_or_null(yr), build.ptr(out), build.i64(n),
-                      build.c_int(int(g > 0)), source_text=source)
+                      *block, build.c_int(int(g > 0)), source_text=source)
     return out

@@ -3,11 +3,15 @@
 ``prove_sharded`` runs the unchanged ``prover.default_prove`` on every rank
 of a mesh, on a Stark proxy that puts the trace on the rank's device and
 carries a ``ShardedExecutor``.  The prover finds the executor on the Stark
-and hands it the LDE + commit phases and the FRI layers when the trees hash
-with SHA-256; every other phase runs on every rank on the replicated
-tensors the executor returns.  Every rank generates the same trace (the
-trace generators are deterministic) and returns the same proof, byte for
-byte the one-process prove's.
+and, when the trees hash with SHA-256 and ``phases_supported`` holds, runs
+every phase from the base commit to the decommit on the rank's share
+(``parallel.executor``): a rank holds 1/d of every LDE, tree and FRI
+layer, evaluates the constraints on its block of the CE domain and DEEP on
+its rows, and fetches the queried rows and nodes from their owners.  The
+trace, the composition's CE-sized evaluations and the grind are
+replicated; RPO-256 trees keep the replicated path.  Every rank generates
+the same trace (the trace generators are deterministic) and returns the
+same proof, byte for byte the one-process prove's.
 
 The JAX package's ``runtime.py`` has no counterpart here.  Its flags guard
 JAX compile-time choices the port does not make: ``spmd``, ``spmd_mode``

@@ -5,7 +5,7 @@ A ``Mesh`` is the counterpart of the JAX ``Mesh`` with one axis: the
 ``torch.distributed`` process group, this process's ``rank``, the world
 size ``d`` and the rank's device.  Every rank is one process that holds one
 device.  The collectives the sharded phases use go through the mesh, which
-counts them and the bytes each rank sends:
+counts them, the bytes each rank sends and the most one of them sends:
 
 * ``all_to_all(x)``: x is (d, ...), block j goes to rank j, and block j of
   the result came from rank j;
@@ -15,11 +15,19 @@ Design (the JAX package's, on ranks instead of chips):
 
 * trace columns shard over the ranks through iNTT and coset NTT with no
   communication;
-* at the Merkle commit one all_to_all turns the column shard into a row
-  shard, each rank builds its subtree and the log2(d) tip is built from
-  the gathered subtree roots;
+* at the Merkle commit an all_to_all a column turns the column shard into
+  a row shard (rank r keeps the LDE rows j = r mod d), each rank builds
+  its subtree and the log2(d) tip is built from the gathered subtree
+  roots;
 * the FRI folds run the distributed six-step NTT (``parallel.ntt``), three
-  all_to_alls of n/d elements each.
+  all_to_alls of n/d elements each;
+* constraint evaluation, DEEP and the decommit run on each rank's share
+  (``parallel.executor``); only a few rows, digests or partial sums are
+  gathered.
+
+Every collective is an exchange or a gather: an NCCL or gloo reduction
+adds int64 words with wraparound, not mod p, so field sums gather the
+partials and add them in the field.
 
 ``shard_columns``, ``sharded_lde_and_commit`` and ``sharded_fri_fold``
 keep the JAX names as thin calls into ``parallel.executor``.
@@ -81,10 +89,13 @@ class Mesh:
     def reset_stats(self) -> None:
         self.collectives = 0
         self.collective_bytes = 0
+        self.max_collective_bytes = 0
 
     def _count(self, t: torch.Tensor) -> None:
+        sent = t.numel() * t.element_size()
         self.collectives += 1
-        self.collective_bytes += t.numel() * t.element_size()
+        self.collective_bytes += sent
+        self.max_collective_bytes = max(self.max_collective_bytes, sent)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         assert x.shape[0] == self.d, (tuple(x.shape), self.d)
@@ -162,16 +173,17 @@ def shard_columns(mesh: Mesh, values: torch.Tensor) -> torch.Tensor:
 
 
 def sharded_lde_and_commit(mesh: Mesh, trace_dom, lde_dom):
-    """fn(values) -> (natural-order LDE, root bytes) of a replicated
-    (ncols, n) Fp or (ncols, 3, n) Fq3 trace matrix, sharded over the
-    ranks (``ShardedExecutor.lde_commit``)."""
+    """fn(values) -> (this rank's rows j = rank (mod d) of the
+    natural-order LDE, root bytes) of a replicated (ncols, n) Fp or (ncols,
+    3, n) Fq3 trace matrix, sharded over the ranks
+    (``ShardedExecutor.lde_commit``)."""
     from .executor import ShardedExecutor
 
     ex = ShardedExecutor(mesh)
 
     def call(values: torch.Tensor):
         lde, tree = ex.lde_commit(values, trace_dom, lde_dom)
-        return lde, tree.root()
+        return lde.values, tree.root()
 
     return call
 
@@ -188,6 +200,6 @@ def sharded_fri_fold(mesh: Mesh, n: int, folding_factor: int):
 
     def call(local: torch.Tensor, alpha):
         powers = alpha_powers(alpha, folding_factor, local.device)
-        return ex.fri_fold(local, n, folding_factor, powers, local=True)
+        return ex.fri_fold(local, n, folding_factor, powers, "block")
 
     return call

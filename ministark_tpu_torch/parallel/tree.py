@@ -1,0 +1,80 @@
+"""A Merkle tree whose levels stay sharded over the ranks of a mesh.
+
+In the tree-bitrev storage of ``merkle`` (each level merges its two
+contiguous halves) the subtree under storage node r of the d-wide level
+holds exactly the storage nodes s = r (mod d) of every level below it, at
+local index s // d.  Rank r keeps that subtree, built from its own leaf
+digests, and every rank keeps the tip: the levels of d nodes and fewer,
+built from the gathered subtree roots.  The root comes from the tip.  A
+decommit wants the same nodes on every rank (``CommittedMerkleTree._plan``
+reads only the positions), so one fixed-size gather (``fetch``) brings
+every wanted node of the sharded levels from its owner.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import merkle
+from ..ntt import bit_reverse_index
+from .sharded import Mesh
+
+
+def fetch(mesh: Mesh, parts: list, dim: int = 0) -> torch.Tensor:
+    """Entries of tensors held cyclically along `dim` (entry s on rank s
+    mod d at local index s // d), on every rank: `parts` is [(this rank's
+    tensor, storage indices)], and the result holds the entries asked,
+    part after part, `dim` moved to the front: (entries, ...).  One
+    all_gather of the entries a rank."""
+    d = mesh.d
+    picked, owners = [], []
+    for local, storage in parts:
+        s = torch.tensor(storage, dtype=torch.int64)
+        picked.append(local.index_select(dim, (s // d).to(local.device)))
+        owners.append(s % d)
+    mine = torch.cat(picked, dim) if len(picked) > 1 else picked[0]
+    got = mesh.all_gather(mine).movedim(dim + 1, 1)  # (d, entries, ...)
+    owner = torch.cat(owners).to(got.device)
+    return got[owner, torch.arange(owner.shape[0], device=got.device)]
+
+
+class ShardedMerkleTree(merkle.CommittedMerkleTree):
+    """The tree of n leaves of which this rank holds the subtree under
+    storage node rank of the d-wide level (``local_levels``: its levels
+    from its n / d leaf digests, in local storage order, to its root) and
+    the replicated tip.  ``levels`` lists the sharded levels (n / d rows
+    each of the n, ..) and then the tip (d, .., 1 nodes)."""
+
+    def __init__(self, mesh: Mesh, local_levels: list[torch.Tensor],
+                 hashfn=merkle.H):
+        self.mesh = mesh
+        self.hashfn = hashfn
+        roots = mesh.all_gather(local_levels[-1])  # (d, 1, 32)
+        tip = merkle.tree_levels(roots.reshape(mesh.d, 32), hashfn)
+        self.split = len(local_levels) - 1  # the first tip level
+        self.levels = local_levels[:-1] + tip
+        self.n = int(local_levels[0].shape[0]) * mesh.d
+        assert self.n & (self.n - 1) == 0 and self.n >= 2
+        self._root = None
+
+    def _fetch_many(self, wants: dict) -> dict:
+        """{level: indices} -> {(level, index): digest bytes}: the tip's
+        nodes from this rank, the sharded levels' in one gather."""
+        out, keys, parts = {}, [], []
+        for lvl, ix in wants.items():
+            if not ix:
+                continue
+            m = self.n >> lvl
+            s = [bit_reverse_index(m, i) for i in ix]
+            lv = self.levels[lvl]
+            if lvl < self.split:
+                keys += [(lvl, i) for i in ix]
+                parts.append((lv, s))
+                continue
+            rows = lv.index_select(0, torch.tensor(
+                s, dtype=torch.int64, device=lv.device)).cpu().numpy()
+            out.update({(lvl, i): row.tobytes() for i, row in zip(ix, rows)})
+        if parts:
+            rows = fetch(self.mesh, parts).cpu().numpy()
+            out.update({k: row.tobytes() for k, row in zip(keys, rows)})
+        return out

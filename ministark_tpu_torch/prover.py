@@ -12,8 +12,12 @@ the FRI commit phase the coin runs on the device between the layers
 (``fri.FriProver``, ``ops.coin``) and the host coin replays it from the
 roots afterwards, so the layers need no transfer in between.  A Stark
 that carries a ``sharded_executor`` (``parallel.prover.prove_sharded``)
-has its LDE + commit phases and FRI layers run over the ranks of a
-process group, with SHA-256 trees.  The bytes are the JAX package's.
+runs its phases from the commits to the decommit over the ranks of a
+process group where the trees hash with SHA-256 and the executor's
+predicates hold (``phases_supported``): each rank holds its share of
+every LDE, tree and FRI layer, evaluates the constraints on its block of
+the CE domain and DEEP on its rows (``parallel.executor``).  The bytes
+are the JAX package's.
 """
 
 from __future__ import annotations
@@ -22,10 +26,11 @@ from . import merkle
 from .air import Challenges, ProofOptions
 from .channel import ProverChannel
 from .composer import DeepPolyComposer
-from .eval import eval_composition
+from .eval import eval_composition, eval_composition_block, trace_halo
 from .fri import FriOptions, FriProver
 from .fields.scalar import Fq3
 from .matrix import Matrix, MatrixExt3
+from .parallel.composer import ShardedDeepPolyComposer
 from .proof import Proof, Queries
 from .utils.timer import Timer
 
@@ -54,19 +59,22 @@ def default_prove(stark, options: ProofOptions, witness,
     fq_is_ext = getattr(air.config, "fq_type", None) is Fq3
 
     # The sharded executor (parallel/executor.py), when the Stark carries
-    # one: the LDE + commit phases and the FRI layers run over the ranks of
-    # its mesh, with SHA-256 trees only.
+    # one: with SHA-256 trees, and where its predicates hold, the phases
+    # from the commits to the decommit run over the ranks of its mesh on
+    # each rank's share (the grind stays replicated).
     executor = getattr(stark, "sharded_executor", None)
-    use_ex_commit = (executor is not None and hashfn is merkle.H
-                     and executor.commit_supported(lde_dom.size))
+    sharded = (executor is not None and hashfn is merkle.H
+               and executor.phases_supported(air))
+    ce_dom = air.ce_domain()
+    halo = trace_halo(air)
 
     # -- phase 1: base trace commit (src/prover.rs:45-55) --------------------
     with timer("Base trace commitment"):
         assert air.config.NUM_BASE_COLUMNS == base_trace.num_cols
         base_polys = None
-        if use_ex_commit:
-            base_lde, base_tree = executor.lde_commit_fp(
-                base_trace, trace_dom, lde_dom)
+        if sharded:
+            base_lde, base_tree = executor.lde_commit(
+                base_trace.values, trace_dom, lde_dom, ce_dom, halo)
         else:
             base_polys = base_trace.interpolate(trace_dom)
             base_lde = base_polys.evaluate(lde_dom)
@@ -83,9 +91,9 @@ def default_prove(stark, options: ProofOptions, witness,
         assert getattr(air.config, "NUM_EXTENSION_COLUMNS", 0) == num_ext
         ext_polys = ext_lde = ext_tree = None
         if ext_trace is not None:
-            if use_ex_commit:
-                ext_lde, ext_tree = executor.lde_commit_ext3(
-                    ext_trace, trace_dom, lde_dom)
+            if sharded:
+                ext_lde, ext_tree = executor.lde_commit(
+                    ext_trace.values, trace_dom, lde_dom, ce_dom, halo)
             else:
                 ext_polys = ext_trace.interpolate(trace_dom)
                 ext_lde = ext_polys.evaluate(lde_dom)
@@ -98,27 +106,26 @@ def default_prove(stark, options: ProofOptions, witness,
 
     # -- phase 3: composition trace (src/prover.rs:78-131) -------------------
     with timer("Constraint evaluation"):
-        ce_dom = air.ce_domain()
-        r = lde_dom.size // ce_dom.size
-
-        def on_ce(lde, polys):
-            if r == 1:
-                return lde
-            if polys is not None:
-                return polys.evaluate(ce_dom)
-            # the executor's LDE came without its coefficients: the CE
-            # domain's point j is the LDE's point j r (the same coset)
-            return type(lde)(lde.values[..., ::r].contiguous())
-
-        base_ce = on_ce(base_lde, base_polys)
-        ext_ce = None
-        if ext_lde is not None:
-            ext_ce = on_ce(ext_lde, ext_polys).values
         composition_coeffs = channel.public_coin.draw_multiple(
             air.num_composition_constraint_coeffs())
-        comp_evals = eval_composition(
-            air, composition_coeffs, challenges, hints, ce_dom.elements(dev),
-            base_ce.values, ext_ce)
+        if sharded:
+            # this rank's block of the CE domain with its halo (from the
+            # commits' exchange); the blocks gathered: the one CE-sized
+            # vector a rank holds whole
+            comp_evals = executor.gather(eval_composition_block(
+                air, composition_coeffs, challenges, hints,
+                executor.ce_points(ce_dom, dev), base_lde.take_ce(),
+                None if ext_lde is None else ext_lde.take_ce()))
+        else:
+            r = lde_dom.size // ce_dom.size
+            base_ce = base_lde if r == 1 else base_polys.evaluate(ce_dom)
+            ext_ce = None
+            if ext_lde is not None:
+                ext_ce = (ext_lde if r == 1
+                          else ext_polys.evaluate(ce_dom)).values
+            comp_evals = eval_composition(
+                air, composition_coeffs, challenges, hints,
+                ce_dom.elements(dev), base_ce.values, ext_ce)
 
     with timer("Composition trace commitment"):
         cb = air.ce_blowup_factor
@@ -127,18 +134,28 @@ def default_prove(stark, options: ProofOptions, witness,
         if fq_is_ext:
             comp_polys = MatrixExt3(coeffs.reshape(3, air.trace_len, cb)
                                     .permute(2, 0, 1).contiguous())
+        else:
+            comp_polys = Matrix(coeffs.reshape(air.trace_len, cb).T.contiguous())
+        del coeffs, comp_evals
+        if sharded:
+            comp_lde, comp_tree = executor.commit_coeffs(comp_polys.values,
+                                                         lde_dom)
+        elif fq_is_ext:
             comp_lde = comp_polys.evaluate(lde_dom)
             comp_tree = merkle.commit_matrix_ext3(comp_lde.values, hashfn)
         else:
-            comp_polys = Matrix(coeffs.reshape(air.trace_len, cb).T.contiguous())
             comp_lde = comp_polys.evaluate(lde_dom)
             comp_tree = merkle.commit_matrix(comp_lde.values, hashfn)
+        del comp_polys
         channel.commit_composition_trace(comp_tree.root())
 
     # -- phase 4: DEEP composition (src/prover.rs:133-149) -------------------
     with timer("DEEP composition"):
         z = channel.get_ood_point()
-        composer = DeepPolyComposer(air, z, base_lde, comp_lde, ext_lde)
+        composer = (ShardedDeepPolyComposer(executor.mesh, air, z, base_lde,
+                                            comp_lde, ext_lde)
+                    if sharded else
+                    DeepPolyComposer(air, z, base_lde, comp_lde, ext_lde))
         execution_oods, composition_oods = composer.get_ood_evals()
         channel.send_ood_evals(execution_oods, composition_oods)
         deep_coeffs = stark.gen_deep_coeffs(channel.public_coin, air)
@@ -150,7 +167,10 @@ def default_prove(stark, options: ProofOptions, witness,
             folding_factor=options.fri_folding_factor,
             max_remainder_coeffs=options.fri_max_remainder_coeffs,
             blowup_factor=options.lde_blowup_factor), hashfn, executor)
-        fri_prover.build_layers(channel, deep_lde)
+        if sharded:  # deep_lde: this rank's rows j = rank (mod d)
+            fri_prover.build_layers(channel, deep_lde, cyclic=True)
+        else:
+            fri_prover.build_layers(channel, deep_lde)
 
     # -- phase 6: PoW + queries (src/prover.rs:157-173) ----------------------
     with timer("Proof of work"):

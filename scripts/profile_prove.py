@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of one warm prove goes, on one GPU.
 
-    python3 scripts/profile_prove.py [fib|bf|hello|fib_rpo|hello_rpo|rescue ...]
+    python3 scripts/profile_prove.py [--sharded] [fib|bf|hello|fib_rpo|hello_rpo|rescue ...]
 
 For each workload (default: all three) it proves once cold and twice warm,
 then runs one more warm prove under ``torch.profiler`` (CPU and CUDA
@@ -16,7 +16,10 @@ values (bench.py's options), ``programs/fibonacci.bf`` cut to ten numbers
 (2^20 rows) and ``programs/hello_world.bf``, both with the 96-bit options,
 and the same fib and hello_world with RPO-256 trees and coin (``fib_rpo``,
 ``hello_rpo``), and the Rescue hash chain of 2^14 links (2^18 rows,
-``rescue``); these three are not in the default set.  Needs a card.
+``rescue``); these three are not in the default set.  With
+``--sharded`` each workload is proved by ``parallel.prover.prove_sharded``
+at NCCL world size 1 in this process (every sharded phase and its
+collectives, each an identity).  Needs a card.
 """
 
 from __future__ import annotations
@@ -49,20 +52,27 @@ def busy_ms(intervals) -> float:
     return total / 1e3
 
 
-def profile(torch, name) -> dict:
+def profile(torch, name, mesh=None) -> dict:
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from chip_smoke import workload
+    from ministark_tpu_torch.parallel.prover import prove_sharded
 
     claim, trace, opts, _info = workload(name)
+
+    def prove(phases=None):
+        if mesh is None:
+            return claim.prove(opts, trace, phases)
+        return prove_sharded(claim, opts, trace, mesh, phase_log=phases)
+
     for _ in range(3):
-        claim.prove(opts, trace)
+        prove()
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         phases: list = []
         t0 = time.perf_counter()
-        claim.prove(opts, trace, phases)
+        prove(phases)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
@@ -77,7 +87,8 @@ def profile(torch, name) -> dict:
                  if any(s in k for s in OWN_KERNELS))
     busy = busy_ms(intervals)
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
-    return {"workload": name, "wall_ms": wall_ms, "device_busy_ms": busy,
+    return {"workload": name, "sharded": mesh is not None,
+            "wall_ms": wall_ms, "device_busy_ms": busy,
             "busy_share": busy / wall_ms, "device_events": len(dev),
             "device_ms_summed": device_ms,
             "own_kernels_share": own_ms / device_ms if device_ms else None,
@@ -98,9 +109,28 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    for name in sys.argv[1:] or ["fib", "bf", "hello"]:
-        print(json.dumps({"card": card, **profile(torch, name)}), flush=True)
+    args = sys.argv[1:]
+    mesh = None
+    if "--sharded" in args:
+        import tempfile
+
+        from ministark_tpu_torch.parallel.sharded import make_mesh
+
+        args.remove("--sharded")
+        store = tempfile.mkdtemp(prefix="profile_prove_")
+        mesh = make_mesh("nccl", init_method=f"file://{store}/nccl", rank=0,
+                         world_size=1)
+    for name in args or ["fib", "bf", "hello"]:
+        print(json.dumps({"card": card, **profile(torch, name, mesh)}),
+              flush=True)
         torch.cuda.empty_cache()
+    if mesh is not None:
+        import shutil
+
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
     return 0
 
 

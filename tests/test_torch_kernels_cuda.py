@@ -556,6 +556,59 @@ def test_rescue_evaluator_matches_plain_on_card(dev, trace_len):
     assert build.KERNELS["eval"].launches > before
 
 
+@pytest.mark.parametrize("which", ["fib", "bf", "rescue"])
+def test_block_entry_matches_plain_on_card(dev, which):
+    """Kernel E's block entry (``eval_terms_block``): the last of four
+    blocks of the CE domain from trace columns holding its points and the
+    halo after them, against its plain version, in both launch ways."""
+    import torch
+
+    from ministark_tpu_torch import eval as teval
+    from ministark_tpu_torch.air import Air, ProofOptions
+    from ministark_tpu_torch.ops import build
+    from ministark_tpu_torch.ops import eval as keval
+
+    if which == "fib":
+        from ministark_tpu_torch.fields.scalar import Fp
+        from ministark_tpu_torch.models.fib import FibAirConfig
+
+        air = Air(FibAirConfig, 128, Fp(3), ProofOptions(8, 4, 2, 4, 16))
+    elif which == "bf":
+        from ministark_tpu_torch.models.brainfuck import (BrainfuckAirConfig,
+                                                          BrainfuckClaim)
+
+        air = Air(BrainfuckAirConfig, 64, BrainfuckClaim("+.", b"", b"\x01"),
+                  ProofOptions(9, 16, 0, 4, 16))
+    else:
+        from ministark_tpu_torch.models.rescue import RescueAirConfig
+
+        air = Air(RescueAirConfig, 64, (7, 8, 1, 2),
+                  ProofOptions(8, 8, 4, 4, 16))
+    kernel = build.KERNELS["eval_ext3" if which == "bf" else "eval"]
+    before = kernel.launches
+    plan, source, _ = teval._plan_for(air)
+    n = air.ce_domain().size
+    m, h = n // 4, teval.trace_halo(air)
+    n_fp = sum(1 for k in plan.inv_keys if plan.inv_kind[k] == "fp")
+    nb = air.config.NUM_BASE_COLUMNS
+    ne = getattr(air.config, "NUM_EXTENSION_COLUMNS", 0)
+    args = [_rand((nb, m + h), 71), _rand((ne, 3, m + h), 72),
+            air.ce_domain().elements("cpu")[3 * m:],
+            _rand((len(plan.periodic), m), 73), _rand((n_fp, m), 74),
+            _rand((len(plan.inv_keys) - n_fp, 3, m), 75),
+            _rand(max(plan.num_slots, 1), 76)]
+    for what, e, _kind in plan.scalars:  # Pow exponents sit in the table
+        if what == "exp":
+            args[-1][plan.slot[("exp", e)]] = e
+    cb = air.ce_blowup_factor
+    want = keval.eval_terms_plain(plan, cb, *args, block=True)
+    for launch in ("grid", "groups"):
+        _same(torch, keval.eval_terms_block(plan, source, cb,
+                                            *[a.to(dev) for a in args],
+                                            launch=launch), want)
+    assert kernel.launches > before
+
+
 def _build_fib_path():
     """Every CUDA source and the fib evaluator, built in this process, so
     that spawned ranks load the libraries and never build them."""
@@ -580,7 +633,8 @@ def _build_fib_path():
 def test_prove_sharded_on_card(dev, tmp_path):
     """fib 2^10 by prove_sharded: NCCL at world size 1 in this process,
     then two gloo ranks sharing cuda:0; both give the golden bytes, and
-    every collective runs (at world size 1 each is an identity)."""
+    every collective runs (at world size 1 each is an identity), the
+    commits' column exchanges half as many at two ranks."""
     import os
 
     import torch.distributed as dist
@@ -605,9 +659,16 @@ def test_prove_sharded_on_card(dev, tmp_path):
     with RankPool(2, "gloo", "cuda", str(tmp_path / "gloo"),
                   timeout=300) as pool:
         out = pool.run(tasks.prove, "fib")
+    # the commits exchange a column at a time: at world size 1 a rank
+    # holds every column, at two half of them (fib's 8 trace columns, the
+    # rows and the CE block; the composition's cb columns)
+    claim, trace, opts = tasks.workload("fib", "cpu")
+    cb = claim.build_air(trace.base_columns().num_rows,
+                         opts).ce_blowup_factor
+    fewer = 2 * (8 - 4) + (cb - -(-cb // 2))
     for r in out:
         assert r["proof"] == golden and r["loaded"] == []
-        assert r["collectives"] == one["collectives"]
+        assert r["collectives"] == one["collectives"] - fewer
 
 
 def test_nccl_ranks_sharing_a_card_raise(dev, tmp_path):

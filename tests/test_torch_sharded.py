@@ -1,11 +1,14 @@
 """The port's sharded LDE + commit and FRI executor
 (``parallel.executor.ShardedExecutor``) in 2 and 4 CPU ranks over gloo,
 against the one-process functions they stand for: ``merkle.commit_matrix``
-/ ``commit_matrix_ext3`` of the one-process LDE (the LDE, the root and
-every tree level, node for node), ``fri.fold_evals`` / ``fold_coeffs``
-with a fixed alpha, and ``fri.FriProver._commit_layer``.  The thin API of
-``parallel.sharded`` runs beside them, and the support predicates are held
-against the JAX executor's.  Tolerance 0 throughout.
+/ ``commit_matrix_ext3`` of the one-process LDE (each rank's rows j = rank
+mod d of the LDE, the root, each rank's nodes of every sharded tree level
+and the replicated tip, node for node), ``fri.fold_evals`` /
+``fold_coeffs`` with a fixed alpha, and ``fri.FriProver._commit_layer``
+(each rank's rows and levels of the layer, and rows fetched at leaf
+positions).  The thin API of ``parallel.sharded`` runs beside them, and
+the support predicates are held against the JAX executor's.  Tolerance
+0 throughout.
 """
 
 import functools
@@ -64,15 +67,19 @@ def test_lde_commit_matches_one_process(pools, d, kind, rows, blowup):
     out = pools(d).run(tasks.lde_commit, kind, rows, blowup, 11)
     trace = out[0]["trace"]
     lde, tree = _one_process_commit(trace.tobytes(), trace.shape, blowup)
-    for r in out:
+    for rank, r in enumerate(out):
         np.testing.assert_array_equal(r["trace"], trace)
-        np.testing.assert_array_equal(r["lde"], lde)
+        np.testing.assert_array_equal(r["lde"], lde[..., rank::d])
         assert r["root"] == tree.root()
         assert len(r["levels"]) == len(tree.levels)
-        for got, want in zip(r["levels"], tree.levels):
-            np.testing.assert_array_equal(got, want.numpy())
-        # all_to_all of the rows, all_gather of the levels and of the LDE
-        assert r["collectives"] == 3
+        assert tree.levels[r["split"]].shape[0] == d
+        for lvl, (got, want) in enumerate(zip(r["levels"], tree.levels)):
+            want = want.numpy()
+            if lvl < r["split"]:  # storage nodes rank + i d
+                want = want[rank::d]
+            np.testing.assert_array_equal(got, want)
+        # an all_to_all a column of the rank's block, the subtree roots
+        assert r["collectives"] == -(-trace.shape[0] // d) + 1
 
 
 @pytest.mark.parametrize("ext", [False, True], ids=["fp", "fq3"])
@@ -89,25 +96,43 @@ def test_fri_fold_matches_fold_evals(pools, d, ext):
     powers = alpha_powers(a, N, "cpu")
     want = tasks._host(fold_evals(x, n, N, powers))
     coeffs = tasks._host(fold_coeffs(x, n, N, powers))
-    for key in ("from_whole", "from_block", "thin"):
+    for key in ("from_whole", "from_block", "from_cyclic", "thin"):
         np.testing.assert_array_equal(
             np.concatenate([r[key] for r in out], axis=-1), want)
     for r in out:
         np.testing.assert_array_equal(r["coeffs"], coeffs)
 
 
-@pytest.mark.parametrize("local", [False, True], ids=["whole", "block"])
+@pytest.mark.parametrize("local", ["whole", "block", "cyclic"])
 @pytest.mark.parametrize("ext", [False, True], ids=["fp", "fq3"])
 @pytest.mark.parametrize("d", [2, 4])
 def test_fri_commit_layer_matches_one_process(pools, d, ext, local):
+    """Each rank's rows are the leaves rank + i d of the one-process
+    layer's tree-bitrev storage, and rows fetched at leaf positions are
+    the one-process rows there."""
+    import torch
+
+    from ministark_tpu_torch.ntt import permute_bitrev
+
     n, N = 1 << 8, 4
     out = pools(d).run(tasks.fri_commit, n, N, ext, local, 9)
     rows, tree = _one_process_layer(n, N, ext)
-    for r in out:
-        np.testing.assert_array_equal(r["rows"], rows)
+    leaf_dim = 2 if ext else 0
+    storage = permute_bitrev(torch.from_numpy(rows.astype(np.int64)),
+                             dim=leaf_dim).numpy().astype(np.uint64)
+    for rank, r in enumerate(out):
+        np.testing.assert_array_equal(
+            r["rows"], storage[rank::d] if not ext else storage[..., rank::d])
+        at = np.take(rows, r["positions"], axis=leaf_dim)
+        at = at.reshape(-1) if not ext else at.transpose(2, 0, 1).reshape(
+            -1, 3)
+        assert r["rows_at"] == [tuple(map(int, v)) if ext else int(v)
+                                for v in at]
         assert len(r["levels"]) == len(tree.levels)
-        for got, want in zip(r["levels"], tree.levels):
-            np.testing.assert_array_equal(got, want.numpy())
+        for lvl, (got, want) in enumerate(zip(r["levels"], tree.levels)):
+            want = want.numpy()
+            np.testing.assert_array_equal(
+                got, want[rank::d] if lvl < r["split"] else want)
 
 
 @pytest.mark.parametrize("d", [1, 2, 4, 8])

@@ -3,9 +3,11 @@ in 2 and 4 CPU ranks over gloo: every rank's proof bytes must equal the
 JAX-written golden files, which the one-process prove reproduces.
 
 * fib at 2^10 values at d = 2 and 4 (``tests/golden/fib_2e10.proof``):
-  the LDE + commit and the FRI layers run sharded;
+  every phase from the commits to the decommit runs sharded;
 * the golden brainfuck program at d = 2 (``brainfuck_2plus3.proof``): the
   Fq3 extension commit and Fq3 FRI layers run sharded;
+* the golden 4-link Rescue chain at d = 2 (``rescue_4links.proof``): the
+  periodic columns on each rank's block of the CE domain;
 * the fully algebraic fib at 2^7 values at d = 2
   (``fib_2e7_rpo_full.proof``): RPO-256 trees, so the executor stands
   aside and the prove makes no collective at all.
@@ -37,7 +39,8 @@ def _golden(name):
 
 
 # the sharded proves of each pool, in the order they run
-RUNS = {2: ("fib", "bf", "rpo_full"), 4: ("fib", "fib_fold8", "fib_rpo_coin")}
+RUNS = {2: ("fib", "bf", "rescue", "rpo_full"),
+        4: ("fib", "fib_fold8", "fib_rpo_coin")}
 ONE_PROCESS = ("fib_fold8", "fib_rpo_coin")
 
 
@@ -80,6 +83,7 @@ def _ranks(proofs, which, d):
 @pytest.mark.parametrize("which,d,golden", [
     ("fib", 2, "fib_2e10.proof"), ("fib", 4, "fib_2e10.proof"),
     ("bf", 2, "brainfuck_2plus3.proof"),
+    ("rescue", 2, "rescue_4links.proof"),
     ("rpo_full", 2, "fib_2e7_rpo_full.proof")])
 def test_prove_sharded_equals_golden_on_every_rank(proofs, which, d, golden):
     out = _ranks(proofs, which, d)

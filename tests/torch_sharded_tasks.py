@@ -95,7 +95,8 @@ def ntt(mesh, n, offset, ext, seed):
 def lde_commit(mesh, kind, rows, blowup, seed):
     """The sharded LDE + commit of a trace: "fib" (the fib trace of rows
     x 8 values), "fp5" (5 random Fp columns) or "ext3" (3 random Fq3
-    columns); the LDE, every tree level, the root and the collectives."""
+    columns); this rank's rows of the LDE, its tree levels (the sharded
+    ones, then the tip, from `split` on), the root and the collectives."""
     from ministark_tpu_torch.models.fib import gen_trace
     from ministark_tpu_torch.ntt import Domain
     from ministark_tpu_torch.parallel.executor import ShardedExecutor
@@ -114,10 +115,10 @@ def lde_commit(mesh, kind, rows, blowup, seed):
     thin_lde, thin_root = sharded_lde_and_commit(mesh, trace_dom,
                                                  lde_dom)(vals)
     assert bytes(thin_root) == tree.root()
-    assert bool((thin_lde == lde).all())
-    return {"trace": _host(vals), "lde": _host(lde),
+    assert bool((thin_lde == lde.values).all())
+    return {"trace": _host(vals), "lde": _host(lde.values),
             "levels": [lv.cpu().numpy() for lv in tree.levels],
-            "root": tree.root(), "collectives": count}
+            "split": tree.split, "root": tree.root(), "collectives": count}
 
 
 def fri_fold(mesh, n, N, ext, alpha, seed):
@@ -138,32 +139,44 @@ def fri_fold(mesh, n, N, ext, alpha, seed):
     m = n // mesh.d
     block = x[..., mesh.rank * m:(mesh.rank + 1) * m]
     return {"from_whole": _host(ex.fri_fold(x, n, N, powers)),
-            "from_block": _host(ex.fri_fold(block, n, N, powers,
-                                            local=True)),
+            "from_block": _host(ex.fri_fold(block, n, N, powers, "block")),
+            "from_cyclic": _host(ex.fri_fold(x[..., mesh.rank::mesh.d], n,
+                                             N, powers, "cyclic")),
             "coeffs": _host(ex.fri_fold(x, n, N, powers, last=True)),
             "thin": _host(sharded_fri_fold(mesh, n, N)(block, a))}
 
 
-def fri_commit(mesh, n, N, ext, local, seed):
+def fri_commit(mesh, n, N, ext, layout, seed):
     """A sharded FRI layer commit of a codeword from `seed`, from the
-    replicated codeword or (local) this rank's block: the tree's levels
-    and the rows in leaf order."""
+    replicated codeword, this rank's block or its cyclic share (`layout`):
+    the tree's levels (the sharded ones, then the tip, from `split` on),
+    this rank's rows (leaves rank + i d of tree-bitrev storage) and the
+    rows at a few leaf positions, fetched from their owners."""
     from ministark_tpu_torch.parallel.executor import ShardedExecutor
 
     x = _tensor(values(seed, *((3, n) if ext else (n,))), mesh.device)
     ex = ShardedExecutor(mesh)
     assert ex.fri_commit_supported(n, N)
-    if local:
+    if layout == "block":
         m = n // mesh.d
         x = x[..., mesh.rank * m:(mesh.rank + 1) * m]
-    tree, rows = ex.fri_commit_layer(x, n, N, local)
+    elif layout == "cyclic":
+        x = x[..., mesh.rank::mesh.d]
+    tree, rows = ex.fri_commit_layer(x, n, N, layout)
+    M = n // N
+    positions = [0, 1, 2, M // 2 - 1, M // 2, M - 1]
     return {"levels": [lv.cpu().numpy() for lv in tree.levels],
-            "rows": _host(rows)}
+            "split": tree.split, "rows": _host(rows.local),
+            "positions": positions,
+            "rows_at": [v.v if not hasattr(v, "c0") else
+                        (v.c0.v, v.c1.v, v.c2.v)
+                        for v in rows.rows_at(positions)]}
 
 
 def workload(which, device):
     """(claim, trace, options) of a configuration: "fib" (2^10 values,
-    the golden options), "bf" (the golden brainfuck program), "rpo_full"
+    the golden options), "bf" (the golden brainfuck program), "rescue"
+    (the golden 4-link Rescue chain), "rpo_full"
     (the fully algebraic fib, 2^7 values), "fib_fold8" (fib 2^10 folding
     by 8 down to 8 values: at d = 4 the last fold is one the executor does
     not support, after a sharded one), "fib_rpo_coin" (fib 2^10 with
@@ -182,6 +195,13 @@ def workload(which, device):
         return (BrainfuckClaim(program, b"", output),
                 BrainfuckTrace(tables, device=device),
                 ProofOptions(9, 16, 0, 4, 16))
+    if which == "rescue":
+        from ministark_tpu_torch.models.rescue import RescueClaim
+        from ministark_tpu_torch.models.rescue import gen_trace as chain
+
+        trace, (d0, d1) = chain((7, 8), 4, device=device)
+        return RescueClaim(7, 8, d0.v, d1.v), trace, ProofOptions(8, 8, 4, 4,
+                                                                   16)
 
     class FibClaimRpoFull(FibClaim):
         merkle_hash = hash_rpo
@@ -230,3 +250,166 @@ def fail_before_gather(mesh, rank):
     if mesh.rank == rank:
         raise ValueError(f"rank {rank} fails on purpose")
     return mesh.all_gather(torch.zeros(1)).tolist()
+
+
+def deep_phase(mesh, which, seed):
+    """The DEEP phase of `which`'s AIR on random LDE-domain matrices (base,
+    extension where the AIR has one, composition; shapes the prove's) and
+    a coin's z and DEEP coefficients: the OOD evaluations and DEEP vector
+    of the one-process ``DeepPolyComposer`` on the whole matrices, and of
+    the ``ShardedDeepPolyComposer`` on this rank's rows."""
+    from ministark_tpu_torch.composer import DeepPolyComposer
+    from ministark_tpu_torch.matrix import Matrix, MatrixExt3
+    from ministark_tpu_torch.parallel.composer import ShardedDeepPolyComposer
+    from ministark_tpu_torch.parallel.matrix import ShardedMatrix
+
+    claim, trace, opts = workload(which, mesh.device)
+    base = trace.base_columns()
+    air = claim.build_air(base.num_rows, opts)
+    n, d, r = air.lde_domain().size, mesh.d, mesh.rank
+    ne = getattr(air.config, "NUM_EXTENSION_COLUMNS", 0)
+    rng = np.random.default_rng(seed)
+    ext3 = ne > 0
+
+    def rand(*shape):
+        return _tensor(rng.integers(0, P, size=shape, dtype=np.uint64),
+                       mesh.device)
+
+    cb = air.ce_blowup_factor
+    whole = [Matrix(rand(base.num_cols, n)),
+             MatrixExt3(rand(cb, 3, n)) if ext3 else Matrix(rand(cb, n)),
+             MatrixExt3(rand(ne, 3, n)) if ext3 else None]
+    coin = claim.gen_public_coin(air)
+    z = coin.draw()
+    coeffs = claim.gen_deep_coeffs(coin, air)
+    out = {}
+    for key, comp in (("one", DeepPolyComposer(air, z, *whole)),
+                      ("sharded", ShardedDeepPolyComposer(
+                          mesh, air, z, *[None if m is None else ShardedMatrix(
+                              mesh, m.values[..., r::d].contiguous())
+                              for m in whole]))):
+        oods = comp.get_ood_evals()
+        out[key] = {"oods": [[str(v) for v in o] for o in oods],
+                    "deep": _host(comp.deep_lde(coeffs))}
+    return out
+
+
+POSITION_SETS = ([0], [0, 1], [1, 2], [3, 3, 4, 4, 9], [62, 63, 0, 1],
+                 [5, 6, 7, 31, 32, 33, 34], [17, 17, 17],
+                 list(range(0, 64, 3)), list(range(64)))
+
+
+def decommit(mesh, seed):
+    """A tree of 64 random leaf digests and 64-row Fp and Fq3 matrices,
+    each whole (one process) and as this rank's share: the one-process and
+    the sharded proofs (``prove``) and rows (``get_bit_reversed_rows``) at
+    each of POSITION_SETS, and the gathers they took."""
+    import torch
+
+    from ministark_tpu_torch import merkle
+    from ministark_tpu_torch.matrix import Matrix, MatrixExt3
+    from ministark_tpu_torch.parallel.executor import ShardedExecutor
+    from ministark_tpu_torch.parallel.matrix import ShardedMatrix
+
+    rng = np.random.default_rng(seed)
+    n, d, r = 64, mesh.d, mesh.rank
+    digests = torch.from_numpy(rng.integers(0, 256, size=(n, 32),
+                                            dtype=np.uint8)).to(mesh.device)
+    one = merkle.CommittedMerkleTree(merkle.tree_levels(digests))
+    mesh.reset_stats()
+    tree = ShardedExecutor(mesh)._tree(digests[r::d])
+    fp = _tensor(values(seed, 3, n), mesh.device)
+    fq = _tensor(values(seed + 1, 2, 3, n), mesh.device)
+    out = {"root": (one.root(), tree.root()), "proofs": [], "rows": [],
+           "build_collectives": mesh.collectives}
+    mesh.reset_stats()
+    for pos in POSITION_SETS:
+        out["proofs"].append((one.prove(pos), tree.prove(pos)))
+        rows = []
+        for whole, cls in ((fp, Matrix), (fq, MatrixExt3)):
+            mine = ShardedMatrix(mesh, whole[..., r::d].contiguous())
+            rows.append(([[str(v) for v in row] for row in
+                          cls(whole).get_bit_reversed_rows(pos)],
+                         [[str(v) for v in row] for row in
+                          mine.get_bit_reversed_rows(pos)]))
+        out["rows"].append(rows)
+    out["decommit_collectives"] = mesh.collectives
+    return out
+
+
+def prove_shares(mesh, which):
+    """prove_sharded of `which` with spies: the shapes of every matrix and
+    tree level the executor commits (LDEs, composition, FRI layers), the
+    largest collective, the bytes; the one-process constraint evaluation
+    and DEEP composer are made to raise, so the prove shows it ran the
+    sharded phases."""
+    import os
+
+    os.environ["MINISTARK_TPU_TIMERS"] = "0"
+    from ministark_tpu_torch import prover
+    from ministark_tpu_torch.parallel import executor as pex
+    from ministark_tpu_torch.parallel.prover import prove_sharded
+
+    seen = []
+    ex = pex.ShardedExecutor
+    commit, layer = ex._commit, ex.fri_commit_layer
+
+    def spy_commit(self, lde, ncols, ce):
+        n = lde.shape[-1]
+        matrix, tree = commit(self, lde, ncols, ce)
+        seen.append(("lde", n, tuple(matrix.values.shape),
+                     [tuple(lv.shape) for lv in tree.levels], tree.split))
+        return matrix, tree
+
+    def spy_layer(self, evals, n, N, layout="whole"):
+        tree, rows = layer(self, evals, n, N, layout)
+        seen.append(("fri", n // N, tuple(rows.local.shape),
+                     [tuple(lv.shape) for lv in tree.levels], tree.split))
+        return tree, rows
+
+    def replicated(*args, **kwargs):
+        raise AssertionError("a replicated phase ran")
+
+    claim, trace, opts = workload(which, mesh.device)
+    saved = (prover.eval_composition, prover.DeepPolyComposer)
+    pex.ShardedExecutor._commit = spy_commit
+    pex.ShardedExecutor.fri_commit_layer = spy_layer
+    prover.eval_composition = prover.DeepPolyComposer = replicated
+    try:
+        mesh.reset_stats()
+        data = prove_sharded(claim, opts, trace, mesh).to_bytes(claim.fq)
+    finally:
+        pex.ShardedExecutor._commit = commit
+        pex.ShardedExecutor.fri_commit_layer = layer
+        prover.eval_composition, prover.DeepPolyComposer = saved
+    return {"proof": data, "seen": seen,
+            "max_bytes": mesh.max_collective_bytes,
+            "lde_n": claim.build_air(trace.base_columns().num_rows,
+                                     opts).lde_domain().size}
+
+
+def prove_failing(mesh, which, target):
+    """prove_sharded of `which` with `target` ("module:attr" of the port)
+    made to raise on every rank: the exception must fail the prove."""
+    import importlib
+    import os
+
+    os.environ["MINISTARK_TPU_TIMERS"] = "0"
+    from ministark_tpu_torch.parallel.prover import prove_sharded
+
+    mod, _, attr = target.partition(":")
+    owner = importlib.import_module(mod)
+    path = attr.split(".")
+    for part in path[:-1]:
+        owner = getattr(owner, part)
+    saved = getattr(owner, path[-1])
+
+    def boom(*args, **kwargs):
+        raise ValueError(f"{target} fails on purpose")
+
+    setattr(owner, path[-1], boom)
+    try:
+        claim, trace, opts = workload(which, mesh.device)
+        return prove_sharded(claim, opts, trace, mesh).to_bytes(claim.fq)
+    finally:
+        setattr(owner, path[-1], saved)
