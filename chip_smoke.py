@@ -11,7 +11,8 @@ RPO grind), a 2^29-point coset LDE (the multi-pass column NTT), the
 Rescue-Prime hash chain (Fp, SHA-256; eleven periodic columns, powers of
 trace sums), the 128- and 252-bit field vectors with their NTT at
 2^18 points (BIG), and the multi-process prover (D: ``parallel``'s
-``prove_sharded`` over ``torch.distributed``).  Every prove's FRI commit phase runs the device coin
+``prove_sharded`` over ``torch.distributed``, over SHA-256 trees, D-F,
+and over RPO-256 trees and coin, D-R).  Every prove's FRI commit phase runs the device coin
 between its layers (``coin_sha``, or ``coin_rpo`` for the RPO coin).
 Phases, any failure exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -62,7 +63,8 @@ Phases, any failure exits non-zero:
      shape;
   4. prove fib at 2^10 values, brainfuck "++>+++[<+>-]<." and the Rescue
      chain of 4 links with the golden-fixture options, and the fully
-     algebraic fib at 2^7 values:
+     algebraic fib at 2^7 values and the brainfuck program with RPO-256
+     trees and coin:
      the bytes must equal ``tests/golden/`` and every kernel of each path
      must have launched; prove and verify fib at 2^7 values with RPO-256
      trees and the SHA-256 coin;
@@ -95,14 +97,20 @@ Phases, any failure exits non-zero:
      D on a rank's 2^22 LDE rows and its subtree, kernel E's block entry
      on a rank's block of the CE domain with its halo, kernel A on the
      block's denominators and the rank's OOD weights, kernel F's DEEP sum
-     and OOD sums on the rank's 2^22 LDE rows, each against its plain
-     version; then fib at 2^24 values by ``prove_sharded`` at NCCL world
-     size 1 in this process, and fib and hello_world in two gloo ranks
-     sharing the card (spawned; they load the libraries phase 2 built):
-     every rank's bytes must equal phase 5's or phase 7's one-process
-     proof and verify; cold and warm seconds, rank 0's per-phase device
-     ms and launches, collectives, bytes and the largest collective a
-     prove, every rank's peak memory beside the one-process prove's;
+     and OOD sums on the rank's 2^22 LDE rows, and (D-R) kernel G's row
+     hashes of a rank's 2^22 base and composition rows, a level of its
+     merges and its FRI layer 0 rows, its whole 2^22-leaf subtree and the
+     tip's tops launch over two roots, each against its plain version;
+     then fib at 2^24 values by ``prove_sharded`` at NCCL world size 1 in
+     this process, and fib and hello_world (D-F), then the fully
+     algebraic fib and hello_world RPO (D-R, RPO-256 trees and coin), in
+     two gloo ranks sharing the card (spawned; they load the libraries
+     phase 2 built): every rank's bytes must equal phase 5's, 7's, 8's or
+     9's one-process proof and verify, every prove must make collectives,
+     the same on every rank; cold and warm seconds, rank 0's per-phase
+     device ms and launches, collectives, bytes and the largest
+     collective a prove, every rank's peak memory beside the one-process
+     prove's (a D-R fib rank's at most 70% of it);
  14. print the card, the kernel table as one JSON line (one entry per
      kernel and path, with that path's launches), then the result.
 
@@ -126,6 +134,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_FIB = os.path.join(ROOT, "tests", "golden", "fib_2e10.proof")
 GOLDEN_BF = os.path.join(ROOT, "tests", "golden", "brainfuck_2plus3.proof")
 GOLDEN_RPO = os.path.join(ROOT, "tests", "golden", "fib_2e7_rpo_full.proof")
+GOLDEN_BF_RPO = os.path.join(ROOT, "tests", "golden",
+                             "brainfuck_2plus3_rpo.proof")
 GOLDEN_RESCUE = os.path.join(ROOT, "tests", "golden", "rescue_4links.proof")
 PROGRAMS = os.path.join(ROOT, "programs")
 GOLDEN_BF_PROGRAM = "++>+++[<+>-]<."
@@ -158,6 +168,12 @@ BIG_PATH = ("big_mul", "big_ntt")
 SHARDED = "sharded_fib_2e24"
 SHARDED_PATH = ("inv", "ntt", "transpose", "sha256", "sha256_tree", "eval",
                 "deep", "ood_sums")
+# D-R: the fully algebraic fib (R) and hello_world RPO (H) by prove_sharded
+# in the same gloo ranks: every kernel of R's path launches on a rank; its
+# kernel rows are the RPO-256 ones at rank 0's shapes (the others' shapes
+# are D-F's)
+SHARDED_RPO = "sharded_fib_rpo_2e24"
+SHARDED_RPO_ROWS = ("rpo256", "rpo256_tree")
 SHARDED_RANKS = 2
 BIG_LOG_N = 18  # the largest size of the reference's FFT bench
 RPO_SAMPLE = 1 << 18  # states the plain RPO permutation is compared on
@@ -908,13 +924,15 @@ def merge_halves(merge):
     return lambda d: merge(d[:d.shape[0] // 2], d[d.shape[0] // 2:])
 
 
-def compare_fib_rpo_kernels(ck: Checker, fib_air_big):
-    """The RPO permutation at the fully algebraic fib prove's shapes: the
-    2^23 eight-column base rows, the 2^23 one-column composition rows, one
-    tree level of 2^22 merges and FRI layer 0 (2^20 rows of 8)."""
+def compare_rpo_rows(ck: Checker, path, fib_air_big, n):
+    """The RPO permutation at the fully algebraic fib prove's shapes over n
+    LDE rows (all of them in one process, a rank's share in D-R): the n
+    eight-column base rows and the n composition rows, each laid out as
+    (ncols, n) and read as its transpose, one tree level of n / 2 merges
+    and FRI layer 0's n / fold rows of fold; compared on the first
+    RPO_SAMPLE rows of each part, timed whole."""
     from ministark_tpu_torch.ops import rpo256 as krpo
 
-    n = fib_air_big.lde_domain().size
     cb = fib_air_big.ce_blowup_factor
     fold = fib_air_big.options.fri_folding_factor
 
@@ -929,7 +947,7 @@ def compare_fib_rpo_kernels(ck: Checker, fib_air_big):
                  krpo.hash_rows_plain)]
     perms = (n + n * ((cb + 7) // 8) + n // 2
              + (n // fold) * ((fold + 7) // 8))
-    ck.check("rpo256", FIB_RPO, parts,
+    ck.check("rpo256", path, parts,
              8 * (8 + cb + 1) * n + 64 * n + 96 * (n // 2) + 32 * (n // fold),
              perms * OPS_RPO, reps=2, plain_reps=1,
              plain_on=f"the first {RPO_SAMPLE} rows of each part")
@@ -981,12 +999,13 @@ def tree_plain(kmod, leaves):
     return torch.cat(levels)
 
 
-def compare_tree(ck: Checker, path, n, sample, sha=False):
+def compare_tree(ck: Checker, path, n, sample, sha=False, tip=0):
     """A whole Merkle tree (RPO-256, or SHA-256 where `sha`) over n leaf
     digests through ``merkle.tree_levels`` (the path's largest tree: its
     merge launches and the tops launch), timed at n; compared level by
     level with merge_plain on a tree of `sample` leaves (all n where
-    sample == n)."""
+    sample == n).  With `tip`, a second part: the tree over `tip` digests
+    (a sharded tree's tip over the ranks' subtree roots), whole."""
     import torch
 
     from ministark_tpu_torch import hash as H
@@ -1007,12 +1026,19 @@ def compare_tree(ck: Checker, path, n, sample, sha=False):
                 lambda: tree_plain(kmod, small), None,
                 *([full] if sample < n else []))
 
-    ck.check("sha256_tree" if sha else "rpo256_tree", path, [make],
-             32 * n + 32 * (n - 1),
-             (n - 1) * (sha_ops(64) if sha else OPS_RPO),
-             reps=2 if n > 1 << 20 else 20, plain_reps=1,
-             plain_on=(f"a tree of {sample} of the {n} leaves"
-                       if sample < n else None))
+    def make_tip():
+        roots = digests(ck, tip)
+        return (lambda: torch.cat(merkle.tree_levels(roots, hashfn)),
+                lambda: tree_plain(kmod, roots), None)
+
+    on = f"a tree of {sample} of the {n} leaves" if sample < n else None
+    if tip:
+        on = f"{on or 'the whole tree'}; the tip of {tip} roots whole"
+    ck.check("sha256_tree" if sha else "rpo256_tree", path,
+             [make, make_tip] if tip else [make],
+             32 * (2 * n - 1) + (32 * (2 * tip - 1) if tip else 0),
+             (n - 1 + max(tip - 1, 0)) * (sha_ops(64) if sha else OPS_RPO),
+             reps=2 if n > 1 << 20 else 20, plain_reps=1, plain_on=on)
 
 
 def compare_sha_grind(ck: Checker, path, bits):
@@ -1419,6 +1445,7 @@ def workload(name: str):
       "fib_big"    fib at 2^29 values (2^26 rows x 8 columns), FIB_OPTS:
                    more than one card holds in one process, for
                    ``scripts/prove_sharded.py`` on several cards;
+      "fib_big_rpo" "fib_big" with RPO-256 trees and coin;
       "bf"         ``programs/fibonacci.bf`` with its count line cut from
                    eleven '+' to ten (2^20 rows), BF_OPTS;
       "hello"      ``programs/hello_world.bf``, BF_OPTS;
@@ -1446,10 +1473,10 @@ def workload(name: str):
         torch.cuda.synchronize()
         return RescueClaim(*seed, d0.v, d1.v), trace, ProofOptions(
             *RESCUE_OPTS), {"trace_gen_s": time.perf_counter() - t0}
-    if name in ("fib", "fib_rpo", "fib_big"):
+    if name in ("fib", "fib_rpo", "fib_big", "fib_big_rpo"):
         t0 = time.perf_counter()
-        trace = gen_trace(1 << (29 if name == "fib_big" else 24))
-        claim = (fib_rpo if name == "fib_rpo" else FibClaim)(
+        trace = gen_trace(1 << (29 if name.startswith("fib_big") else 24))
+        claim = (fib_rpo if name.endswith("_rpo") else FibClaim)(
             trace.last_value())
         torch.cuda.synchronize()
         return claim, trace, ProofOptions(*FIB_OPTS), {
@@ -1746,6 +1773,22 @@ def compare_sharded_kernels(ck: Checker, fib_air_big, d: int):
     del ocols, dinvs, xl, gpow
 
 
+def compare_sharded_rpo_kernels(ck: Checker, fib_air_big, d: int):
+    """D-R's RPO-256 rows at the shapes rank 0 of d gives them in the fully
+    algebraic fib prove (R): the row hashes of the rank's LDE rows j = 0
+    mod d of the 8 base columns and of the composition's cb columns, laid
+    out as the executor lays them after its exchange ((ncols, n / d)
+    contiguous, read as its transpose), one level of merges of the rank's
+    leaves and FRI layer 0's rows of the rank (n / fold / d rows of fold);
+    the rank's whole subtree through ``merkle.tree_levels`` (its merges
+    and the tops launch) and the tip over the d gathered subtree roots,
+    the tops launch at m = d.  The large parts are compared on their first
+    RPO_SAMPLE rows (a tree of RPO_SAMPLE leaves) and timed whole."""
+    m = fib_air_big.lde_domain().size // d
+    compare_rpo_rows(ck, SHARDED_RPO, fib_air_big, m)
+    compare_tree(ck, SHARDED_RPO, m, RPO_SAMPLE, tip=d)
+
+
 def sharded_prove(mesh, name: str, verify_bits: int | None = None):
     """Run on every rank: `name`'s workload (made on the rank's device)
     proved by prove_sharded, cold then warm; the warm run's bytes, host
@@ -1795,12 +1838,15 @@ def sharded_prove(mesh, name: str, verify_bits: int | None = None):
 def sharded_path(torch, build, expect: dict, claims: dict, card: str,
                  one_peak: dict):
     """D: fib at F's size by prove_sharded at NCCL world size 1 in this
-    process, then fib and hello_world in SHARDED_RANKS gloo ranks sharing
-    the card (spawned processes that load the libraries built in phase
-    2); every rank's bytes must equal the one-process proof of phase 5
-    (F) or 7 (W), and verify; every rank's peak memory is printed beside
-    the one-process prove's (`one_peak`).  Returns rank 0's launches of
-    the gloo fib run."""
+    process, then fib and hello_world (D-F) and, over RPO-256 trees and
+    coin, the fully algebraic fib and hello_world (D-R) in SHARDED_RANKS
+    gloo ranks sharing the card (spawned processes that load the libraries
+    built in phase 2); every rank's bytes must equal the one-process proof
+    of phase 5 (F), 7 (W), 8 (R) or 9 (H), and verify; every prove must
+    make collectives, the same count and bytes on every rank; every rank's
+    peak memory is printed beside the one-process prove's (`one_peak`),
+    and a D-R fib rank's may be at most 70% of it.  Returns rank 0's
+    launches of the gloo fib run and of the gloo RPO fib run."""
     import shutil
     import tempfile
 
@@ -1812,15 +1858,20 @@ def sharded_path(torch, build, expect: dict, claims: dict, card: str,
     from ministark_tpu_torch.proof import Proof
 
     def report(what, name, runs):
-        fq = Fq3 if name == "hello" else Fp
+        fq = Fq3 if name.startswith("hello") else Fp
         for rank, r in enumerate(runs):
             if r["proof"] != expect[name]:
                 fail(f"{what}: rank {rank}'s proof differs from the "
                      f"one-process proof")
             if r["loaded"]:
                 fail(f"{what}: rank {rank} imported {r['loaded']}")
+        if runs[0]["collectives"] == 0:
+            fail(f"{what}: the prove made no collective")
+        if len({(r["collectives"], r["collective_bytes"])
+                for r in runs}) != 1:
+            fail(f"{what}: the ranks' collectives differ")
         claims[name].verify(Proof.from_bytes(runs[0]["proof"], Fp, fq),
-                            30 if name == "fib" else 96)
+                            96 if fq is Fq3 else 30)
         r0 = runs[0]
         phases = {p["phase"]: round(p["device_ms"], 3) for p in r0["phases"]}
         print(f"{what}: byte-identical to the one-process proof on "
@@ -1864,10 +1915,24 @@ def sharded_path(torch, build, expect: dict, claims: dict, card: str,
             report(f"{SHARDED} ({shared})", "fib", fib_runs)
             hello_runs = pool.run(sharded_prove, "hello")
             report(f"sharded_bf_hello_world ({shared})", "hello", hello_runs)
+            rpo_runs = pool.run(sharded_prove, "fib_rpo")
+            report(f"{SHARDED_RPO} ({shared})", "fib_rpo", rpo_runs)
+            peak = max(r["peak_device_gib"] for r in rpo_runs)
+            if peak > 0.7 * one_peak["fib_rpo"]:
+                fail(f"{SHARDED_RPO}: a rank's peak {peak:.3f} GiB is more "
+                     f"than 70% of the one-process prove's "
+                     f"{one_peak['fib_rpo']:.3f} GiB")
+            hello_rpo_runs = pool.run(sharded_prove, "hello_rpo")
+            report(f"sharded_bf_hello_world_rpo ({shared})", "hello_rpo",
+                   hello_rpo_runs)
+            read_counts_of(hello_rpo_runs[0]["launches"], BF_RPO_PATH,
+                           "the sharded RPO hello_world prove (rank 0)")
     finally:
         shutil.rmtree(store, ignore_errors=True)
-    return read_counts_of(fib_runs[0]["launches"], SHARDED_PATH,
-                          "the sharded fib prove (rank 0)")
+    return (read_counts_of(fib_runs[0]["launches"], SHARDED_PATH,
+                           "the sharded fib prove (rank 0)"),
+            read_counts_of(rpo_runs[0]["launches"], FIB_RPO_PATH,
+                           "the sharded RPO fib prove (rank 0)"))
 
 
 def build_kernels():
@@ -1931,7 +1996,8 @@ def main() -> int:
         import ministark_tpu_torch.ops.pow  # noqa: F401
     except ImportError as e:
         fail(f"the port is not importable beside this script: {e}")
-    for path in (GOLDEN_FIB, GOLDEN_BF, GOLDEN_RPO, GOLDEN_RESCUE, PROGRAMS):
+    for path in (GOLDEN_FIB, GOLDEN_BF, GOLDEN_RPO, GOLDEN_BF_RPO,
+                 GOLDEN_RESCUE, PROGRAMS):
         if not os.path.exists(path):
             fail(f"missing {path}")
     for mod in ("jax", "ministark_tpu"):
@@ -1976,7 +2042,7 @@ def main() -> int:
         compare_coin(ck, path, (FIB_OPTS if path == FIB else BF_OPTS)[3])
     torch.cuda.empty_cache()
     compare_fib_kernels(ck, fib_air_big, FIB_RPO, FIB_RPO_PATH)
-    compare_fib_rpo_kernels(ck, fib_air_big)
+    compare_rpo_rows(ck, FIB_RPO, fib_air_big, fib_air_big.lde_domain().size)
     compare_bf_kernels(ck, hello_air, BF_RPO, BF_RPO_PATH)
     compare_bf_rpo_kernels(ck, hello_air)
     compare_grind(ck, FIB_RPO, FIB_OPTS[2])
@@ -2040,6 +2106,20 @@ def main() -> int:
                       Fp, 8, "RPO-tree SHA-coin fib 2^7")
 
     reset_counts(build)
+    bf_rpo = rpo_claims()[2](GOLDEN_BF_PROGRAM, b"", output)
+    data = bf_rpo.prove(bf_golden_opts, BrainfuckTrace(tables)).to_bytes(Fq3)
+    with open(GOLDEN_BF_RPO, "rb") as f:
+        if data != f.read():
+            fail("the RPO brainfuck proof differs from "
+                 "tests/golden/brainfuck_2plus3_rpo.proof")
+    # grind 0: the golden brainfuck prove never grinds
+    counts = read_counts(build, [k for k in BF_RPO_PATH
+                                 if k != "rpo256_grind"],
+                         "the golden RPO brainfuck prove")
+    print(f"golden RPO brainfuck proof: byte-identical ({len(data)} bytes); "
+          f"launches {counts}", flush=True)
+
+    reset_counts(build)
     trace, (d0, d1) = rescue_trace((7, 8), 4)
     claim = RescueClaim(7, 8, d0.v, d1.v)
     data = claim.prove(rescue_golden_opts, trace).to_bytes(Fp)
@@ -2095,6 +2175,7 @@ def main() -> int:
     proof, fib_rpo_run = prove_timed(torch, build, claim, opts, trace,
                                      FIB_RPO_PATH, "the RPO fib prove")
     data = proof.to_bytes(Fp)
+    one_process["fib_rpo"], one_claims["fib_rpo"] = data, claim
     fib_rpo_run["verify_s"] = verify_and_tamper(claim, data, Fp, Fp, 30,
                                                 "RPO fib 2^24")
     print(json.dumps({FIB_RPO: {"card": card, **info,
@@ -2108,8 +2189,10 @@ def main() -> int:
     del info["output"]
     proof, hello_rpo = prove_timed(torch, build, claim, opts, trace,
                                    BF_RPO_PATH, "the RPO hello_world prove")
+    one_process["hello_rpo"], one_claims["hello_rpo"] = (
+        proof.to_bytes(Fq3), claim)
     hello_rpo["verify_s"] = verify_and_tamper(
-        claim, proof.to_bytes(Fq3), Fp, Fq3, 96, "RPO hello_world")
+        claim, one_process["hello_rpo"], Fp, Fq3, 96, "RPO hello_world")
     print(json.dumps({BF_RPO: {"card": card, **info, **hello_rpo}}),
           flush=True)
     del trace, claim, proof
@@ -2141,9 +2224,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     compare_sharded_kernels(ck, fib_air_big, SHARDED_RANKS)
     torch.cuda.empty_cache()
-    sharded = sharded_path(torch, build, one_process, one_claims, card,
-                           {"fib": fib["peak_device_gib"],
-                            "hello": hello["peak_device_gib"]})
+    compare_sharded_rpo_kernels(ck, fib_air_big, SHARDED_RANKS)
+    torch.cuda.empty_cache()
+    sharded, sharded_rpo = sharded_path(
+        torch, build, one_process, one_claims, card,
+        {"fib": fib["peak_device_gib"], "hello": hello["peak_device_gib"],
+         "fib_rpo": fib_rpo_run["peak_device_gib"],
+         "hello_rpo": hello_rpo["peak_device_gib"]})
 
     # one entry per kernel and path: checked at that path's shapes, with
     # the launches of that path's warm run
@@ -2156,7 +2243,8 @@ def main() -> int:
             (LDE, LDE_PATH, lde["launches"]),
             (RESCUE, RESCUE_PATH, rescue["launches"]),
             (BIG, BIG_PATH, big["launches"]),
-            (SHARDED, SHARDED_PATH, sharded)):
+            (SHARDED, SHARDED_PATH, sharded),
+            (SHARDED_RPO, SHARDED_RPO_ROWS, sharded_rpo)):
         for name in names:
             k = build.KERNELS[name]
             src = (f"ministark_tpu_torch/csrc/{k.source}" if k.source

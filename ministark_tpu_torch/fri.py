@@ -135,8 +135,12 @@ class FriProver:
         self.options = options
         self.hashfn = hashfn
         # parallel.executor.ShardedExecutor: commits and folds run sharded
-        # where it supports the layer, on SHA-256 trees only
-        self.executor = executor if hashfn is merkle.H else None
+        # where it supports the layer, whatever the tree hash
+        if executor is not None and executor.hashfn is not hashfn:
+            raise ValueError(f"the executor's trees hash with "
+                             f"{executor.hashfn.__name__}, the layers' with "
+                             f"{hashfn.__name__}")
+        self.executor = executor
         self.layers: list[_Layer] = []
         self.remainder_coeffs: list = []
 

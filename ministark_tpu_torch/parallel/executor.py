@@ -1,16 +1,18 @@
 """The sharded phases of the prover (mirrors
 ``ministark_tpu.parallel.executor``).
 
-The prover hands a ``ShardedExecutor`` the phases it can run sharded, and
-only when the trees hash with SHA-256 and the support predicates hold
-(``prover.default_prove``, ``fri.FriProver``).  A rank then holds its 1/d
-share of every LDE-sized tensor from the base commit to the decommit:
+The prover hands a ``ShardedExecutor`` the phases it can run sharded where
+the support predicates hold (``prover.default_prove``, ``fri.FriProver``),
+whatever the tree hash: the executor hashes rows and merges nodes with the
+Stark's ``merkle_hash`` (``merkle.device_hash``: SHA-256, kernel D, or
+RPO-256, kernel G).  A rank then holds its 1/d share of every LDE-sized
+tensor from the base commit to the decommit:
 
 * **LDE + commit**: each rank takes its block of the (zero-padded)
   columns through the iNTT and the coset NTT (``ntt.Domain``: kernels B
   and C) with no communication.  One all_to_all a column gives rank r the
   rows j = r (mod d) of the natural-order LDE (the cyclic layout, a
-  ``ShardedMatrix``), and it hashes them (kernel D) and builds its
+  ``ShardedMatrix``), and it hashes them (kernel D or G) and builds its
   subtree.  In the tree-bitrev storage of ``merkle`` the subtree under
   storage node r of the d-wide level holds exactly the storage rows j = r
   (mod d) of every level below, so the rank keeps it and the tip is built
@@ -58,7 +60,6 @@ from ..fields.scalar import P
 from ..fri import fold_chunks
 from ..ntt import _cached, powers
 from ..ops import ntt as kntt
-from ..ops import sha256 as ksha
 from .matrix import ShardedLayerRows, ShardedMatrix
 from .ntt import ShardedDomain
 from .sharded import Mesh, shard_columns
@@ -68,11 +69,14 @@ WHOLE, BLOCK, CYCLIC = "whole", "block", "cyclic"
 
 
 class ShardedExecutor:
-    """The sharded phases on one rank of `mesh`."""
+    """The sharded phases on one rank of `mesh`, its trees hashing with
+    `hashfn` (the host hash module, ``hash`` or ``hash_rpo``)."""
 
-    def __init__(self, mesh: Mesh):
+    def __init__(self, mesh: Mesh, hashfn=merkle.H):
         self.mesh = mesh
         self.d = mesh.d
+        self.hashfn = hashfn
+        self._dh = merkle.device_hash(hashfn)
         self._domains: dict = {}
 
     # -- support predicates (executor.py:104-117 of the JAX package) --------
@@ -152,8 +156,8 @@ class ShardedExecutor:
     def _tree(self, digests: torch.Tensor) -> ShardedMerkleTree:
         """The sharded tree of this rank's leaf digests in local storage
         order (storage rows rank + i d)."""
-        return ShardedMerkleTree(self.mesh,
-                                 merkle.tree_levels(digests, merkle.H))
+        return ShardedMerkleTree(
+            self.mesh, merkle.tree_levels(digests, self.hashfn), self.hashfn)
 
     # -- LDE + commit --------------------------------------------------------
 
@@ -189,10 +193,10 @@ class ShardedExecutor:
         del lde
         rows = rows.reshape(d * cpd, planes, m)[:ncols]
         if planes == 3:
-            digests = ksha.hash_rows_ext3(rows)
+            digests = self._dh.hash_rows_ext3(rows)
         else:
             rows = rows.reshape(ncols, m)
-            digests = ksha.hash_rows(rows.T)
+            digests = self._dh.hash_rows(rows.T)
             if ce_block is not None:
                 ce_block = ce_block.reshape(ncols, -1)
         return ShardedMatrix(self.mesh, rows, ce_block), self._tree(digests)
@@ -231,11 +235,11 @@ class ShardedExecutor:
         br = kntt.bitrev_index(N, x.device)
         if x.ndim == 1:  # [i, t] = x[bitrev_N(t) M/d + i]
             rows = x.reshape(N, M // d).index_select(0, br).T.contiguous()
-            digests = ksha.hash_rows(rows)
+            digests = self._dh.hash_rows(rows)
         else:  # (N, 3, M/d): element t of the rows, Fq3 components
             rows = (x.reshape(3, N, M // d).index_select(1, br)
                     .permute(1, 0, 2).contiguous())
-            digests = ksha.hash_rows_ext3(rows)
+            digests = self._dh.hash_rows_ext3(rows)
         return self._tree(digests), ShardedLayerRows(self.mesh, rows)
 
     def fri_fold(self, evals: torch.Tensor, n: int, N: int,

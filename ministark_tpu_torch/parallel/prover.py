@@ -2,16 +2,17 @@
 
 ``prove_sharded`` runs the unchanged ``prover.default_prove`` on every rank
 of a mesh, on a Stark proxy that puts the trace on the rank's device and
-carries a ``ShardedExecutor``.  The prover finds the executor on the Stark
-and, when the trees hash with SHA-256 and ``phases_supported`` holds, runs
-every phase from the base commit to the decommit on the rank's share
-(``parallel.executor``): a rank holds 1/d of every LDE, tree and FRI
-layer, evaluates the constraints on its block of the CE domain and DEEP on
-its rows, and fetches the queried rows and nodes from their owners.  The
-trace, the composition's CE-sized evaluations and the grind are
-replicated; RPO-256 trees keep the replicated path.  Every rank generates
-the same trace (the trace generators are deterministic) and returns the
-same proof, byte for byte the one-process prove's.
+carries a ``ShardedExecutor`` hashing with the Stark's tree hash.  The
+prover finds the executor on the Stark and, where ``phases_supported``
+holds, runs every phase from the base commit to the decommit on the rank's
+share (``parallel.executor``), with SHA-256 trees and with RPO-256 trees
+alike: a rank holds 1/d of every LDE, tree and FRI layer, evaluates the
+constraints on its block of the CE domain and DEEP on its rows, and
+fetches the queried rows and nodes from their owners.  The trace, the
+composition's CE-sized evaluations, the grind and the host coin's replay
+are replicated.  Every rank generates the same trace (the trace
+generators are deterministic) and returns the same proof, byte for byte
+the one-process prove's.
 
 The JAX package's ``runtime.py`` has no counterpart here.  Its flags guard
 JAX compile-time choices the port does not make: ``spmd``, ``spmd_mode``
@@ -61,7 +62,7 @@ class _ShardedStark:
     def __init__(self, inner, mesh: Mesh):
         self._inner = inner
         self._mesh = mesh
-        self.sharded_executor = ShardedExecutor(mesh)
+        self.sharded_executor = ShardedExecutor(mesh, inner.merkle_hash)
 
     def generate_trace(self, witness):
         return _ShardedTrace(self._inner.generate_trace(witness), self._mesh)

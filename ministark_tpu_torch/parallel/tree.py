@@ -7,8 +7,8 @@ local index s // d.  Rank r keeps that subtree, built from its own leaf
 digests, and every rank keeps the tip: the levels of d nodes and fewer,
 built from the gathered subtree roots.  The root comes from the tip.  A
 decommit wants the same nodes on every rank (``CommittedMerkleTree._plan``
-reads only the positions), so one fixed-size gather (``fetch``) brings
-every wanted node of the sharded levels from its owner.
+reads only the positions), so one gather (``fetch``) brings every wanted
+node of the sharded levels from its owner.
 """
 
 from __future__ import annotations
@@ -24,18 +24,32 @@ def fetch(mesh: Mesh, parts: list, dim: int = 0) -> torch.Tensor:
     """Entries of tensors held cyclically along `dim` (entry s on rank s
     mod d at local index s // d), on every rank: `parts` is [(this rank's
     tensor, storage indices)], and the result holds the entries asked,
-    part after part, `dim` moved to the front: (entries, ...).  One
-    all_gather of the entries a rank."""
-    d = mesh.d
-    picked, owners = [], []
+    part after part, `dim` moved to the front: (entries, ...).  Every rank
+    knows every entry's owner, so one all_gather in which each rank sends
+    only the entries it owns, padded to the most that any rank owns."""
+    d, rank = mesh.d, mesh.rank
+    owner, slot, picked = [], [], []
+    count = [0] * d
     for local, storage in parts:
-        s = torch.tensor(storage, dtype=torch.int64)
-        picked.append(local.index_select(dim, (s // d).to(local.device)))
-        owners.append(s % d)
-    mine = torch.cat(picked, dim) if len(picked) > 1 else picked[0]
-    got = mesh.all_gather(mine).movedim(dim + 1, 1)  # (d, entries, ...)
-    owner = torch.cat(owners).to(got.device)
-    return got[owner, torch.arange(owner.shape[0], device=got.device)]
+        mine = []
+        for s in storage:
+            o = s % d
+            owner.append(o)
+            slot.append(count[o])
+            count[o] += 1
+            if o == rank:
+                mine.append(s // d)
+        picked.append(local.index_select(dim, torch.tensor(
+            mine, dtype=torch.int64, device=local.device)))
+    sent = torch.cat(picked, dim) if len(picked) > 1 else picked[0]
+    pad = max(count) - sent.shape[dim]
+    if pad:
+        shape = list(sent.shape)
+        shape[dim] = pad
+        sent = torch.cat([sent, sent.new_zeros(shape)], dim)
+    got = mesh.all_gather(sent).movedim(dim + 1, 1)  # (d, max count, ...)
+    return got[torch.tensor(owner, device=got.device),
+               torch.tensor(slot, device=got.device)]
 
 
 class ShardedMerkleTree(merkle.CommittedMerkleTree):

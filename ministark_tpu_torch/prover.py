@@ -13,8 +13,8 @@ the FRI commit phase the coin runs on the device between the layers
 roots afterwards, so the layers need no transfer in between.  A Stark
 that carries a ``sharded_executor`` (``parallel.prover.prove_sharded``)
 runs its phases from the commits to the decommit over the ranks of a
-process group where the trees hash with SHA-256 and the executor's
-predicates hold (``phases_supported``): each rank holds its share of
+process group, whatever the tree hash, where the executor's predicates
+hold (``phases_supported``): each rank holds its share of
 every LDE, tree and FRI layer, evaluates the constraints on its block of
 the CE domain and DEEP on its rows (``parallel.executor``).  The bytes
 are the JAX package's.
@@ -59,12 +59,11 @@ def default_prove(stark, options: ProofOptions, witness,
     fq_is_ext = getattr(air.config, "fq_type", None) is Fq3
 
     # The sharded executor (parallel/executor.py), when the Stark carries
-    # one: with SHA-256 trees, and where its predicates hold, the phases
-    # from the commits to the decommit run over the ranks of its mesh on
-    # each rank's share (the grind stays replicated).
+    # one: where its predicates hold, the phases from the commits to the
+    # decommit run over the ranks of its mesh on each rank's share (the
+    # grind stays replicated).
     executor = getattr(stark, "sharded_executor", None)
-    sharded = (executor is not None and hashfn is merkle.H
-               and executor.phases_supported(air))
+    sharded = executor is not None and executor.phases_supported(air)
     ce_dom = air.ce_domain()
     halo = trace_halo(air)
 

@@ -4,14 +4,16 @@
     python3 scripts/prove_sharded.py [workload ...]
 
 Builds every kernel (``chip_smoke.build_kernels``), proves each workload
-(chip_smoke.py's own, ``chip_smoke.workload``: fib, bf, hello, fib_big;
-default fib and hello) once cold and once warm in this process on cuda:0,
+(chip_smoke.py's own, ``chip_smoke.workload``: fib, bf, hello, fib_big,
+and over RPO-256 trees and coin fib_rpo, hello_rpo, fib_big_rpo; default
+fib and hello) once cold and once warm in this process on cuda:0,
 then spawns one rank a card over NCCL, rank r on cuda:r, and runs
 ``chip_smoke.sharded_prove`` on them: ``prove_sharded`` cold, then warm.
 Every rank's bytes must equal the one-process proof's; any difference or
-failure exits non-zero.  ``fib_big`` (fib at 2^29 values, 2^26 rows x 8
-columns) is more than one card holds in one process: it has no
-one-process proof, so its ranks' bytes must equal one another's, verify
+failure exits non-zero, and so does a prove that makes no collective.
+``fib_big`` and ``fib_big_rpo`` (fib at 2^29 values, 2^26 rows x 8
+columns) are more than one card holds in one process: they have no
+one-process proof, so their ranks' bytes must equal one another's, verify
 (30 bits) and fail with a byte flipped.  Prints, per workload, a line and
 one JSON object: the one-process warm seconds, the sharded warm seconds of
 every rank, rank 0's per-phase device ms, collectives, bytes and the
@@ -30,7 +32,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BACKEND = "nccl"
 TIMEOUT = 300  # seconds the ranks' start and each run may take
-ALONE = ("fib_big",)  # workloads with no one-process prove
+ALONE = ("fib_big", "fib_big_rpo")  # workloads with no one-process prove
 VERIFY_BITS = 30
 
 
@@ -74,7 +76,8 @@ def main() -> int:
                             VERIFY_BITS if alone else None)
             want, one_s = (runs[0]["proof"], None) if alone else one[name]
             same = [r["proof"] == want for r in runs]
-            ok &= all(same) and not any(r["loaded"] for r in runs)
+            ok &= (all(same) and not any(r["loaded"] for r in runs)
+                   and runs[0]["collectives"] > 0)
             r0 = runs[0]
             phases = {p["phase"]: round(p["device_ms"], 3)
                       for p in r0["phases"]}
@@ -102,7 +105,8 @@ def main() -> int:
                 "phases": r0["phases"], "launches": r0["launches"]}}),
                 flush=True)
     if not ok:
-        cs.fail("a rank's proof differs from the one-process proof")
+        cs.fail("a rank's proof differs from the one-process proof, or a "
+                "prove made no collective")
     return 0
 
 

@@ -11,6 +11,10 @@
   package; it pins the extension-trace commitment, so it also holds the
   port's extension columns against the JAX package's) and against the JAX
   package's verifier.
+* A second subprocess proves the same claim with RPO-256 trees and coin;
+  its bytes must equal
+  ``tests/golden/brainfuck_2plus3_rpo.proof``, which the JAX package wrote
+  (``scripts/make_golden_bf_rpo.py``).
 * The entry points that put host data on a device default to the card and
   raise when there is none.
 """
@@ -25,12 +29,15 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "brainfuck_2plus3.proof")
+GOLDEN_RPO = os.path.join(ROOT, "tests", "golden",
+                          "brainfuck_2plus3_rpo.proof")
 PROGRAM = "++>+++[<+>-]<."
 
 _PORT_RUN = r"""
 import json, sys
 sys.modules["jax"] = None            # any import of JAX now fails
 sys.modules["ministark_tpu"] = None  # and so does any of the JAX package
+from ministark_tpu_torch import hash_rpo
 from ministark_tpu_torch.air import ProofOptions
 from ministark_tpu_torch.fields.scalar import Fp, Fq3
 from ministark_tpu_torch.models.brainfuck import (BrainfuckClaim,
@@ -38,15 +45,24 @@ from ministark_tpu_torch.models.brainfuck import (BrainfuckClaim,
 from ministark_tpu_torch.proof import Proof
 from ministark_tpu_torch.verifier import VerificationError
 
-program = sys.argv[1]
+
+class BrainfuckClaimRpo(BrainfuckClaim):
+    merkle_hash = hash_rpo
+    coin_hash = hash_rpo
+
+
+program, rpo = sys.argv[1], sys.argv[2] == "rpo"
 opts = ProofOptions(num_queries=9, lde_blowup_factor=16, grinding_factor=0,
                     fri_folding_factor=4, fri_max_remainder_coeffs=16)
 tables, output = simulate(program)
-claim = BrainfuckClaim(program, b"", output)
+claim = (BrainfuckClaimRpo if rpo else BrainfuckClaim)(program, b"", output)
 data = claim.prove(opts, BrainfuckTrace(tables, device="cpu")).to_bytes(Fq3)
-claim.verify(Proof.from_bytes(data, Fp, Fq3), 16)
+# the RPO-256 run only proves: its bytes are held to a proof the JAX
+# package verified when it wrote it, and the host RPO verify is seconds
+if not rpo:
+    claim.verify(Proof.from_bytes(data, Fp, Fq3), 16)
 # first bytes of the base and extension commitments; last composition OOD
-positions = [21, 62, len(data) - 1]
+positions = [] if rpo else [21, 62, len(data) - 1]
 rejected = []
 for pos in positions:
     bad = bytearray(data)
@@ -64,24 +80,41 @@ print(json.dumps({"proof": data.hex(), "output": output.hex(),
 
 
 @pytest.fixture(scope="module")
-def port_run():
-    env = dict(os.environ, PYTHONPATH=ROOT, MINISTARK_TPU_TIMERS="0")
-    proc = subprocess.Popen([sys.executable, "-c", _PORT_RUN, PROGRAM],
-                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-    try:
-        # the imports this file's tests need, made while the port proves
-        import ministark_tpu.models.brainfuck  # noqa: F401
-        import ministark_tpu.proof  # noqa: F401
-        import ministark_tpu_torch.models.brainfuck  # noqa: F401
-
-        out, err = proc.communicate(timeout=300)
-    finally:
+def port_procs():
+    """The port's proves over SHA-256 and RPO-256 trees, started together
+    with the file's first test that needs one."""
+    env = dict(os.environ, PYTHONPATH=ROOT, MINISTARK_TPU_TIMERS="0",
+               OMP_NUM_THREADS="1")
+    procs = {h: subprocess.Popen(
+        [sys.executable, "-c", _PORT_RUN, PROGRAM, h], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for h in ("sha", "rpo")}
+    yield procs
+    for proc in procs.values():
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
+
+
+def _result(proc):
+    out, err = proc.communicate(timeout=300)
     assert proc.returncode == 0, err[-4000:]
     return json.loads(out.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def port_run(port_procs):
+    # the imports this file's tests need, made while the port proves
+    import ministark_tpu.models.brainfuck  # noqa: F401
+    import ministark_tpu.proof  # noqa: F401
+    import ministark_tpu_torch.models.brainfuck  # noqa: F401
+
+    return _result(port_procs["sha"])
+
+
+@pytest.fixture(scope="module")
+def port_rpo_run(port_procs):
+    return _result(port_procs["rpo"])
 
 
 def test_port_brainfuck_proof_matches_golden_bytes(port_run):
@@ -175,3 +208,12 @@ def test_entry_points_default_to_the_card(entry):
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+
+
+def test_port_brainfuck_rpo_proof_matches_jax_golden_bytes(port_rpo_run):
+    """RPO-256 trees and coin over Fq3: the port's one-process proof
+    equals the JAX package's byte for byte."""
+    with open(GOLDEN_RPO, "rb") as f:
+        want = f.read()
+    assert bytes.fromhex(port_rpo_run["proof"]) == want
+    assert port_rpo_run["loaded"] == []

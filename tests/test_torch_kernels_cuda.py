@@ -2,8 +2,10 @@
 card, at small and awkward shapes (the prove's own shapes are checked by
 chip_smoke.py).  Integer field math: equality is exact.  The
 multi-process prover proves fib 2^10 on the card at NCCL world size 1 and
-in two gloo ranks sharing it, to the golden bytes; NCCL ranks that would
-share a card raise.
+in two gloo ranks sharing it, and the fully algebraic fib 2^7 (RPO-256
+trees and coin) in two gloo ranks, to the golden bytes; RPO-256 runs at a
+rank's shapes (the tip's tops over 2 and 4 roots, cyclic row views); NCCL
+ranks that would share a card raise.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip.  Run
 them on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
@@ -669,6 +671,64 @@ def test_prove_sharded_on_card(dev, tmp_path):
     for r in out:
         assert r["proof"] == golden and r["loaded"] == []
         assert r["collectives"] == one["collectives"] - fewer
+
+
+def test_prove_sharded_rpo_on_card(dev, tmp_path):
+    """The fully algebraic fib 2^7 (RPO-256 trees and coin) by
+    prove_sharded in two gloo ranks sharing cuda:0: every phase sharded,
+    the golden bytes on both ranks, the same collectives on each."""
+    import os
+
+    import torch_sharded_tasks as tasks
+    from ministark_tpu_torch.parallel.spawn import RankPool
+
+    with open(os.path.join(os.path.dirname(__file__), "golden",
+                           "fib_2e7_rpo_full.proof"), "rb") as f:
+        golden = f.read()
+    _build_fib_path()
+    with RankPool(2, "gloo", "cuda", str(tmp_path / "gloo"),
+                  timeout=300) as pool:
+        out = pool.run(tasks.prove, "rpo_full")
+    for r in out:
+        assert r["proof"] == golden and r["loaded"] == []
+        assert r["collectives"] > 0
+    assert len({(r["collectives"], r["bytes"]) for r in out}) == 1
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_rpo_at_a_ranks_shapes_on_card(dev, d):
+    """RPO-256 as rank r of d runs it in prove_sharded: the tip's tree
+    tops over the d gathered subtree roots (m = d, where a one-process
+    tree starts its tops launch at 64 leaves), and row hashes of a rank's
+    cyclic rows read in place (rows j = r mod d of an (8, n) column-major
+    block: row stride d, column stride n), laid out as the executor lays
+    them after its exchange ((8, m) contiguous, read as its transpose) and
+    as Fq3 columns, on both sides of the lane layouts' switch."""
+    import torch
+
+    from ministark_tpu_torch import hash_rpo, merkle
+    from ministark_tpu_torch.ops import rpo256 as krpo
+
+    roots = _rand((d, 4), 70 + d).view(torch.uint8)
+    tops = krpo.tree_tops(roots.to(dev))
+    levels = merkle.tree_levels(roots.to(dev), hash_rpo)
+    assert len(tops) == len(levels) - 1 == d.bit_length() - 1
+    cur = roots
+    for top, lvl in zip(tops, levels[1:]):
+        cur = krpo.merge_plain(cur[:cur.shape[0] // 2],
+                               cur[cur.shape[0] // 2:])
+        _same(torch, top, cur)
+        _same(torch, lvl, cur)
+    for m in (krpo.WIDE_LANES_FROM // 2, krpo.WIDE_LANES_FROM):
+        x = _rand((8, m * d), m + d).to(dev)
+        for r in (0, d - 1):
+            view = x[:, r::d].T
+            _same(torch, krpo.hash_rows(view), krpo.hash_rows_plain(view))
+            rows = x[:, r::d].contiguous()
+            _same(torch, krpo.hash_rows(rows.T),
+                  krpo.hash_rows_plain(rows.T))
+        ext = _rand((3, 3, m), m + d + 1).to(dev)
+        _same(torch, krpo.hash_rows_ext3(ext), krpo.hash_rows_ext3_plain(ext))
 
 
 def test_nccl_ranks_sharing_a_card_raise(dev, tmp_path):

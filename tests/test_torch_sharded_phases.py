@@ -14,10 +14,13 @@ one-process code they stand for, tolerance 0 throughout:
   against the one-process tree's and matrix's, at position sets with
   siblings and duplicates across the ranks' shares; and prove_sharded
   with spies (fib and brainfuck at d = 2 and 4, the Rescue chain at
-  d = 2): the golden bytes with the replicated constraint evaluation
-  and DEEP composer made to raise, every LDE, tree level and FRI layer a
-  rank holds n / d rows, no collective sending more than one LDE column
-  from a rank, and an exception inside a sharded phase failing the prove.
+  d = 2, and over RPO-256 trees and coin the fully algebraic fib at d = 2
+  and 4 and brainfuck at d = 2, held to the JAX-written
+  ``brainfuck_2plus3_rpo.proof``): the golden bytes with the replicated
+  constraint evaluation and DEEP composer made to raise, every LDE, tree
+  level and FRI layer a rank holds n / d rows, no collective sending more
+  than one LDE column from a rank, and an exception inside a sharded
+  phase failing the prove.
 """
 
 import ctypes
@@ -52,39 +55,55 @@ RUNS = {
         (("decommit",), tasks.decommit, (86,)),
         (("prove", "fib"), tasks.prove_shares, ("fib",)),
         (("prove", "bf"), tasks.prove_shares, ("bf",)),
-        (("prove", "rescue"), tasks.prove_shares, ("rescue",))]
+        (("prove", "rescue"), tasks.prove_shares, ("rescue",)),
+        (("prove", "rpo_full"), tasks.prove_shares, ("rpo_full",))]
     + [(("fail", t), tasks.prove_failing, ("fib", t)) for t in FAILING],
     4: [(("deep", "fib"), tasks.deep_phase, ("fib", 85)),
         (("deep", "bf"), tasks.deep_phase, ("bf", 85)),
         (("decommit",), tasks.decommit, (86,)),
         (("prove", "fib"), tasks.prove_shares, ("fib",)),
-        (("prove", "bf"), tasks.prove_shares, ("bf",))]}
+        (("prove", "bf"), tasks.prove_shares, ("bf",)),
+        (("prove", "rpo_full"), tasks.prove_shares, ("rpo_full",))]}
+
+
+# runs in a spare pool of d = 2 beside the two: brainfuck over RPO-256
+# trees takes ~12 s a rank on the CPU (the plain RPO permutation's ~55
+# batches), about as long as the first d = 2 pool's other runs together
+SPARE = [(("prove", "bf_rpo"), tasks.prove_shares, ("bf_rpo",))]
 
 
 @pytest.fixture(scope="module", autouse=True)
 def ranks(tmp_path_factory):
-    """Every run of RUNS, the two pools working while this process runs
-    the tests that need no rank: {(d, key): future of the ranks' results
-    (or the exception a run raised)}."""
-    pools = tasks.Pools(tmp_path_factory)
-
-    def run_all(d):
+    """Every run of RUNS and SPARE, the pools working while this process
+    runs the tests that need no rank: {(d, key): future of {key: the
+    ranks' results (or the exception a run raised)}}.  The spare pool
+    starts in its thread while the two start here."""
+    def run_all(pool, runs):
         out = {}
-        for key, fn, args in RUNS[d]:
+        for key, fn, args in runs:
             try:
-                out[key] = pools(d).run(fn, *args)
+                out[key] = pool().run(fn, *args)
             except Exception as e:  # the test of this run raises it
                 out[key] = e
         return out
 
-    with ThreadPoolExecutor(len(RUNS)) as ex:
-        futures = {d: ex.submit(run_all, d) for d in RUNS}
+    def run_spare(start):
+        with start() as pool:
+            return run_all(lambda: pool, SPARE)
+
+    with ThreadPoolExecutor(len(RUNS) + 1) as ex:
+        spare = ex.submit(run_spare, tasks.spare_pool(tmp_path_factory, 2))
+        pools = tasks.Pools(tmp_path_factory)
+        futures = {(2, key): spare for key, _f, _a in SPARE}
+        for d, runs in RUNS.items():
+            done = ex.submit(run_all, lambda d=d: pools(d), runs)
+            futures.update({(d, key): done for key, _f, _a in runs})
         yield futures
     pools.close()
 
 
 def _ranks(ranks, d, *key):
-    out = ranks[d].result()[key]
+    out = ranks[d, key].result()[key]
     if isinstance(out, Exception):
         raise out
     return out
@@ -314,7 +333,10 @@ def _golden(name):
 @pytest.mark.parametrize("which,d,golden", [
     ("fib", 2, "fib_2e10.proof"), ("fib", 4, "fib_2e10.proof"),
     ("bf", 2, "brainfuck_2plus3.proof"), ("bf", 4, "brainfuck_2plus3.proof"),
-    ("rescue", 2, "rescue_4links.proof")])
+    ("rescue", 2, "rescue_4links.proof"),
+    ("rpo_full", 2, "fib_2e7_rpo_full.proof"),
+    ("rpo_full", 4, "fib_2e7_rpo_full.proof"),
+    ("bf_rpo", 2, "brainfuck_2plus3_rpo.proof")])
 def test_prove_holds_a_share_and_sends_at_most_a_column(ranks, which, d,
                                                         golden):
     """The golden bytes with the one-process constraint evaluation and DEEP
@@ -328,7 +350,8 @@ def test_prove_holds_a_share_and_sends_at_most_a_column(ranks, which, d,
         assert r["proof"] == want
         n = r["lde_n"]
         kinds = [s[0] for s in r["seen"]]
-        assert kinds.count("lde") == (3 if which == "bf" else 2)
+        ext = which.startswith("bf")
+        assert kinds.count("lde") == (3 if ext else 2)
         assert "fri" in kinds
         for kind, size, local, levels, split in r["seen"]:
             rows = local[-1] if kind == "lde" or len(local) == 3 else local[0]
@@ -337,7 +360,7 @@ def test_prove_holds_a_share_and_sends_at_most_a_column(ranks, which, d,
             for k, lv in enumerate(levels):
                 assert lv[0] == (size >> k) // (d if k < split else 1)
             assert levels[split][0] == d
-        assert r["max_bytes"] <= 8 * n * (3 if which == "bf" else 1)
+        assert r["max_bytes"] <= 8 * n * (3 if ext else 1)
 
 
 @pytest.mark.parametrize("target", FAILING)

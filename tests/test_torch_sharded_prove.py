@@ -9,8 +9,8 @@ JAX-written golden files, which the one-process prove reproduces.
 * the golden 4-link Rescue chain at d = 2 (``rescue_4links.proof``): the
   periodic columns on each rank's block of the CE domain;
 * the fully algebraic fib at 2^7 values at d = 2
-  (``fib_2e7_rpo_full.proof``): RPO-256 trees, so the executor stands
-  aside and the prove makes no collective at all.
+  (``fib_2e7_rpo_full.proof``): RPO-256 trees and coin, every phase
+  sharded as over SHA-256 trees.
 
 The ranks refuse to import ``jax`` and ``ministark_tpu`` and report the
 modules they hold.  The backend checks run in this process: NCCL with two
@@ -91,10 +91,7 @@ def test_prove_sharded_equals_golden_on_every_rank(proofs, which, d, golden):
     for rank, r in enumerate(out):
         assert r["proof"] == want, (which, d, rank)
         assert r["loaded"] == [], r["loaded"]
-        if which == "rpo_full":
-            assert r["collectives"] == 0  # the executor stands aside
-        else:
-            assert r["collectives"] > 0 and r["bytes"] > 0
+        assert r["collectives"] > 0 and r["bytes"] > 0
     assert len({(r["collectives"], r["bytes"]) for r in out}) == 1
 
 

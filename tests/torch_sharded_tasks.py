@@ -37,7 +37,8 @@ class Pools:
     def _store(self, d: int) -> str:
         return str(self._tmp.mktemp(f"store_d{d}") / "store")
 
-    def _start(self, d: int, store: str):
+    @staticmethod
+    def _start(d: int, store: str):
         from ministark_tpu_torch.parallel.spawn import RankPool
 
         return RankPool(d, "gloo", "cpu", store, threads=1, block=BLOCK,
@@ -54,6 +55,15 @@ class Pools:
 
         with ThreadPoolExecutor(max(1, len(self._pools))) as ex:
             list(ex.map(lambda pool: pool.close(), self._pools.values()))
+
+
+def spare_pool(tmp_path_factory, d: int):
+    """A function that starts one more pool of d ranks as ``Pools`` starts
+    its own, for a thread to call while the ``Pools`` start: its store is
+    made here, in the calling thread (mktemp is not threadsafe).  The
+    caller closes the pool."""
+    store = str(tmp_path_factory.mktemp(f"spare_d{d}") / "store")
+    return lambda: Pools._start(d, store)
 
 
 def loaded() -> list:
@@ -92,11 +102,22 @@ def ntt(mesh, n, offset, ext, seed):
             "back": _host(dom.ifft(fwd)), "mine": _host(block)}
 
 
-def lde_commit(mesh, kind, rows, blowup, seed):
+def tree_hash(name):
+    """The host hash module of a tree hash's name ("sha" or "rpo")."""
+    from ministark_tpu_torch import hash as sha
+    from ministark_tpu_torch import hash_rpo
+
+    return {"sha": sha, "rpo": hash_rpo}[name]
+
+
+def lde_commit(mesh, kind, rows, blowup, seed, hashname="sha"):
     """The sharded LDE + commit of a trace: "fib" (the fib trace of rows
     x 8 values), "fp5" (5 random Fp columns) or "ext3" (3 random Fq3
-    columns); this rank's rows of the LDE, its tree levels (the sharded
-    ones, then the tip, from `split` on), the root and the collectives."""
+    columns), its trees hashing with `hashname`; this rank's rows of the
+    LDE, its tree levels (the sharded ones, then the tip, from `split`
+    on), the root, the collectives and the tree's proof at a few leaf
+    positions.  The thin API (SHA-256 trees) runs beside the SHA-256
+    commit."""
     from ministark_tpu_torch.models.fib import gen_trace
     from ministark_tpu_torch.ntt import Domain
     from ministark_tpu_torch.parallel.executor import ShardedExecutor
@@ -110,15 +131,20 @@ def lde_commit(mesh, kind, rows, blowup, seed):
         vals = _tensor(values(seed, 3, 3, rows), mesh.device)
     trace_dom, lde_dom = Domain(rows), Domain(rows * blowup, GENERATOR)
     mesh.reset_stats()
-    lde, tree = ShardedExecutor(mesh).lde_commit(vals, trace_dom, lde_dom)
+    lde, tree = ShardedExecutor(mesh, tree_hash(hashname)).lde_commit(
+        vals, trace_dom, lde_dom)
     count = mesh.collectives
-    thin_lde, thin_root = sharded_lde_and_commit(mesh, trace_dom,
-                                                 lde_dom)(vals)
-    assert bytes(thin_root) == tree.root()
-    assert bool((thin_lde == lde.values).all())
+    if hashname == "sha":
+        thin_lde, thin_root = sharded_lde_and_commit(mesh, trace_dom,
+                                                     lde_dom)(vals)
+        assert bytes(thin_root) == tree.root()
+        assert bool((thin_lde == lde.values).all())
+    n = lde_dom.size
+    positions = [0, 1, 2, 5, n // 2 - 1, n // 2, n - 1]
     return {"trace": _host(vals), "lde": _host(lde.values),
             "levels": [lv.cpu().numpy() for lv in tree.levels],
-            "split": tree.split, "root": tree.root(), "collectives": count}
+            "split": tree.split, "root": tree.root(), "collectives": count,
+            "positions": positions, "view": tree.prove(positions)}
 
 
 def fri_fold(mesh, n, N, ext, alpha, seed):
@@ -146,16 +172,17 @@ def fri_fold(mesh, n, N, ext, alpha, seed):
             "thin": _host(sharded_fri_fold(mesh, n, N)(block, a))}
 
 
-def fri_commit(mesh, n, N, ext, layout, seed):
+def fri_commit(mesh, n, N, ext, layout, seed, hashname="sha"):
     """A sharded FRI layer commit of a codeword from `seed`, from the
-    replicated codeword, this rank's block or its cyclic share (`layout`):
-    the tree's levels (the sharded ones, then the tip, from `split` on),
-    this rank's rows (leaves rank + i d of tree-bitrev storage) and the
-    rows at a few leaf positions, fetched from their owners."""
+    replicated codeword, this rank's block or its cyclic share (`layout`),
+    the tree hashing with `hashname`: the tree's levels (the sharded
+    ones, then the tip, from `split` on), this rank's rows (leaves rank +
+    i d of tree-bitrev storage), and the rows and the tree's proof at a
+    few leaf positions, fetched from their owners."""
     from ministark_tpu_torch.parallel.executor import ShardedExecutor
 
     x = _tensor(values(seed, *((3, n) if ext else (n,))), mesh.device)
-    ex = ShardedExecutor(mesh)
+    ex = ShardedExecutor(mesh, tree_hash(hashname))
     assert ex.fri_commit_supported(n, N)
     if layout == "block":
         m = n // mesh.d
@@ -167,7 +194,7 @@ def fri_commit(mesh, n, N, ext, layout, seed):
     positions = [0, 1, 2, M // 2 - 1, M // 2, M - 1]
     return {"levels": [lv.cpu().numpy() for lv in tree.levels],
             "split": tree.split, "rows": _host(rows.local),
-            "positions": positions,
+            "positions": positions, "view": tree.prove(positions),
             "rows_at": [v.v if not hasattr(v, "c0") else
                         (v.c0.v, v.c1.v, v.c2.v)
                         for v in rows.rows_at(positions)]}
@@ -175,8 +202,9 @@ def fri_commit(mesh, n, N, ext, layout, seed):
 
 def workload(which, device):
     """(claim, trace, options) of a configuration: "fib" (2^10 values,
-    the golden options), "bf" (the golden brainfuck program), "rescue"
-    (the golden 4-link Rescue chain), "rpo_full"
+    the golden options), "bf" (the golden brainfuck program), "bf_rpo"
+    (the same with RPO-256 trees and coin), "rescue" (the golden 4-link
+    Rescue chain), "rpo_full"
     (the fully algebraic fib, 2^7 values), "fib_fold8" (fib 2^10 folding
     by 8 down to 8 values: at d = 4 the last fold is one the executor does
     not support, after a sharded one), "fib_rpo_coin" (fib 2^10 with
@@ -186,13 +214,18 @@ def workload(which, device):
     from ministark_tpu_torch.air import ProofOptions
     from ministark_tpu_torch.models.fib import FibClaim, gen_trace
 
-    if which == "bf":
+    if which in ("bf", "bf_rpo"):
         from ministark_tpu_torch.models.brainfuck import (
             BrainfuckClaim, BrainfuckTrace, simulate)
 
+        class BrainfuckClaimRpo(BrainfuckClaim):
+            merkle_hash = hash_rpo
+            coin_hash = hash_rpo
+
         program = "++>+++[<+>-]<."
         tables, output = simulate(program)
-        return (BrainfuckClaim(program, b"", output),
+        cls = BrainfuckClaim if which == "bf" else BrainfuckClaimRpo
+        return (cls(program, b"", output),
                 BrainfuckTrace(tables, device=device),
                 ProofOptions(9, 16, 0, 4, 16))
     if which == "rescue":
