@@ -47,7 +47,8 @@ Phases, any failure exits non-zero:
      prove path's coin step on seeds made from the path's name (k = 1, 3,
      5 draws for SHA-256, 1-8 for RPO-256, the root read in place from a
      level of digests; an RPO draw digest at a counter past 2^32 against
-     the host's); and BIG's big_ntt (Fp128 and Fp252, forward and
+     the host's; timed a launch at the prove's k and N, 50 launches, with
+     the device time alone and the host time a call); and BIG's big_ntt (Fp128 and Fp252, forward and
      inverse, plain and coset) and big_mul at 2^18 points;
      integer field math, so the tolerance is exact equality;
      print the kernel's time, the plain version's, the bound (the least time the
@@ -193,6 +194,10 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 OPS_ADD = 6
 OPS_MUL = 20
 OPS_MUL3 = 6 * OPS_MUL + 17 * OPS_ADD       # Karatsuba with u^3 = 2
+# A 64x64 -> 128-bit product added, unreduced, into a 160-bit accumulator:
+# four 32x32 -> 64 multiply-adds in a carry chain (8 instruction slots) and
+# five carry adds into the words above
+OPS_MAC = 13
 # A batch of inverses needs no more work than Montgomery's trick: three
 # products per element and one Fermat chain a^(p-2) for the whole batch
 # (an addition chain of about 75 products), whatever a kernel does.
@@ -434,16 +439,21 @@ def deep_ops_per_point(kinds, points, ext) -> int:
             + 3 * OPS_ADD + OPS_MUL3)
 
 
-def ood_ops_per_point(kinds, points, ext) -> int:
+def ood_ops_per_point(kinds, points, ext, wide_points=0) -> int:
     """32-bit integer operations per LDE point of the OOD sums at their
-    least work: the weights inv_j[i] g^i once a point j, then a product
-    and a sum a (point, column) pair (kinds: 0 for an Fp column, 1 for an
-    Fq3 one)."""
+    least work: g^i by one product from g^(i - stride), the weights
+    inv_j[i] g^i once a point j (Fq3: three products), then a product a
+    pair added unreduced into its accumulator (OPS_MAC; an Fp column: one
+    in Fp, three by an Fq3 weight; an Fq3 column: Karatsuba's six, with
+    its three sums of column planes a pair and of weight planes once for
+    each of the `wide_points` points an Fq3 column pairs with; kinds: 0
+    for an Fp column, 1 for an Fq3 one).  The reductions are once a
+    thread, not a point."""
     if not ext:
-        return points * OPS_MUL + len(kinds) * (OPS_MUL + OPS_ADD)
-    return points * 3 * OPS_MUL + sum(
-        OPS_MUL3 + 3 * OPS_ADD if k else 3 * OPS_MUL + 3 * OPS_ADD
-        for k in kinds)
+        return OPS_MUL + points * OPS_MUL + len(kinds) * OPS_MAC
+    return (OPS_MUL + points * 3 * OPS_MUL + wide_points * 3 * OPS_ADD
+            + sum(6 * OPS_MAC + 3 * OPS_ADD if k else 3 * OPS_MAC
+                  for k in kinds))
 
 
 class Checker:
@@ -473,7 +483,7 @@ class Checker:
         return s
 
     def check(self, name, path, parts, nbytes, ops, reps=3, plain_reps=3,
-              plain_on=None, launch_cost=False):
+              plain_on=None, launch_cost=False, timed=None):
         """Kernel `name` against its plain version at `path`'s shapes.  Each
         part makes its own inputs and returns (kernel, plain, library or
         None[, full]), functions of no arguments; the parts' times add up,
@@ -485,13 +495,15 @@ class Checker:
         launch_cost=True times the kernel and the library call in turns
         (kernel, library, library, kernel) and also takes, for each, the
         device time alone (torch.profiler, `reps` launches) and the host
-        time of one call (the median of `reps`)."""
+        time of one call (the median of `reps`).  `timed`: the indices of
+        the parts whose times count (by default all); the others are only
+        compared."""
         torch = self.torch
         err = ms = plain_ms = 0.0
         library_ms = None
         cost = {"device_only_ms": 0.0, "host_us": 0.0,
                 "library_device_only_ms": 0.0, "library_host_us": 0.0}
-        for make in parts:
+        for index, make in enumerate(parts):
             kernel, plain, library, *full = make()
             got = kernel()
             if plain_reps == 1:
@@ -501,6 +513,9 @@ class Checker:
             torch.cuda.synchronize()
             err = max(err, max_abs_err(torch, got, want))
             del got, want
+            if timed is not None and index not in timed:
+                del kernel, plain, library, full
+                continue
             if launch_cost and library is not None:
                 # launch-bound: kernel and library in turns (k, l, l, k)
                 t = [time_ms(torch, f, reps)
@@ -690,7 +705,7 @@ def compare_fib_kernels(ck: Checker, fib_air_big, path, names):
     ck.check("ood_sums", path,
              part(lambda: kdeep.ood_sums(ocols, dinvs, pairs, gpow),
                   lambda: kdeep.ood_sums_plain(ocols, dinvs, pairs, gpow)),
-             8 * lde_n * (cols + cb + 3 + 1),
+             8 * lde_n * (cols + cb + 3),
              lde_n * ood_ops_per_point([0] * len(pairs), 3, False))
     del ocols, dinvs
 
@@ -895,9 +910,10 @@ def compare_bf_kernels(ck: Checker, bf_air_big, path, names):
              part(lambda: kdeep.ood_sums_ext3(ocols, invs, pairs, gpow),
                   lambda: kdeep.ood_sums_ext3_plain(ocols, invs, pairs,
                                                     gpow)),
-             8 * n * (nb + 3 * ne + 3 * ncomp + 3 * npts + 1),
-             n * ood_ops_per_point([int(ocols[c].ndim == 2)
-                                    for _j, c in pairs], npts, True),
+             8 * n * (nb + 3 * ne + 3 * ncomp + 3 * npts),
+             n * ood_ops_per_point(
+                 [int(ocols[c].ndim == 2) for _j, c in pairs], npts, True,
+                 len({j for j, c in pairs if ocols[c].ndim == 2})),
              reps=50 if small else 3, plain_reps=1, launch_cost=small)
 
 
@@ -1109,14 +1125,17 @@ def compare_grind(ck: Checker, path, bits):
                                      if batch > sample else None))
 
 
-def compare_coin(ck: Checker, path, fold, rpo=False):
+def compare_coin(ck: Checker, path, fold, k_prove, rpo=False):
     """The path's coin step (``coin_sha``, or ``coin_rpo`` for the RPO
     coin) against its plain version on seeds and roots made from the
     path's name: k = 1, 3, 5 draws for SHA-256, 1-8 for RPO-256 (Fp draws
     one at a time, an Fq3 alpha three), with the `fold` powers of alpha
     the path's folds take for k = 1 and 3; the root read in place from a
-    level of digests.  For the RPO coin also one draw digest at a counter
-    past 2^32 against the host's ``hash_rpo.merge_with_int``."""
+    level of digests.  The row's times and bound are one launch's at the
+    prove's (k_prove, fold), the launch the prove makes once a FRI layer
+    (50 launches, device time alone and host time a call too).  For the
+    RPO coin also one draw digest at a counter past 2^32 against the
+    host's ``hash_rpo.merge_with_int``."""
     import hashlib
 
     torch = ck.torch
@@ -1126,7 +1145,7 @@ def compare_coin(ck: Checker, path, fold, rpo=False):
     name = "coin_rpo" if rpo else "coin_sha"
     fn = kcoin.coin_rpo if rpo else kcoin.coin_sha
     plain = kcoin.coin_rpo_plain if rpo else kcoin.coin_sha_plain
-    ks = range(1, 9) if rpo else (1, 3, 5)
+    ks = list(range(1, 9) if rpo else (1, 3, 5))
     tag = path.encode()
     if rpo:  # RPO roots and seeds: four canonical elements
         seed = hash_rpo.hash_elements(list(hashlib.sha256(tag).digest()[:8]))
@@ -1148,13 +1167,19 @@ def compare_coin(ck: Checker, path, fold, rpo=False):
         return lambda: (lambda: flat(fn(s, level[1], k, powers(k))),
                         lambda: flat(plain(s, level[1], k, powers(k))), None)
 
-    ck.check(name, path, [make(k) for k in ks],
-             sum(32 * 3 + 8 * k * (1 + powers(k)) for k in ks),
-             sum((OPS_RPO if rpo else OPS_COIN_SHA_RESEED)
-                 + (k + 3) // 4 * (OPS_RPO if rpo else OPS_SHA_GRIND)
-                 + k * OPS_MUL
-                 + max(powers(k) - 2, 0) * (OPS_MUL if k == 1 else OPS_MUL3)
-                 for k in ks), reps=20, plain_reps=1)
+    k = k_prove
+    ck.check(name, path, [make(kk) for kk in ks],
+             32 * 3 + 8 * k * (1 + fold),
+             (OPS_RPO if rpo else OPS_COIN_SHA_RESEED)
+             + (k + 3) // 4 * (OPS_RPO if rpo else OPS_SHA_GRIND)
+             + k * OPS_MUL
+             + max(fold - 2, 0) * (OPS_MUL if k == 1 else OPS_MUL3),
+             reps=50, plain_reps=1, launch_cost=True, timed={ks.index(k)})
+    r = ck.results[(name, path)]
+    print(f"kernel {name} ({path}): {r['ms'] * 1e3:.1f} us a launch at the "
+          f"prove's k = {k}, N = {fold} ({r['device_only_ms']} ms device "
+          f"time alone, {r['host_us']:.1f} us host time a call); the prove "
+          f"launches it once a FRI layer", flush=True)
     if rpo:
         counter = (1 << 32) + 5
         d = kcoin.rpo_draw_digests(s.view(torch.int64),
@@ -1768,7 +1793,7 @@ def compare_sharded_kernels(ck: Checker, fib_air_big, d: int):
     ck.check("ood_sums", SHARDED,
              part(lambda: kdeep.ood_sums(ocols, dinvs, pairs, gpow),
                   lambda: kdeep.ood_sums_plain(ocols, dinvs, pairs, gpow)),
-             8 * m * (cols + cb + 3 + 1),
+             8 * m * (cols + cb + 3),
              m * ood_ops_per_point([0] * len(pairs), 3, False))
     del ocols, dinvs, xl, gpow
 
@@ -2039,7 +2064,8 @@ def main() -> int:
                           (HELLO, BF_OPTS[2], hello_n)):
         compare_sha_grind(ck, path, bits)
         compare_tree(ck, path, n, min(n, SHA_SAMPLE), sha=True)
-        compare_coin(ck, path, (FIB_OPTS if path == FIB else BF_OPTS)[3])
+        compare_coin(ck, path, (FIB_OPTS if path == FIB else BF_OPTS)[3],
+                     1 if path == FIB else 3)
     torch.cuda.empty_cache()
     compare_fib_kernels(ck, fib_air_big, FIB_RPO, FIB_RPO_PATH)
     compare_rpo_rows(ck, FIB_RPO, fib_air_big, fib_air_big.lde_domain().size)
@@ -2049,8 +2075,8 @@ def main() -> int:
     compare_grind(ck, BF_RPO, BF_OPTS[2])
     compare_tree(ck, FIB_RPO, fib_air_big.lde_domain().size, RPO_SAMPLE)
     compare_tree(ck, BF_RPO, hello_n, hello_n)
-    compare_coin(ck, FIB_RPO, FIB_OPTS[3], rpo=True)
-    compare_coin(ck, BF_RPO, BF_OPTS[3], rpo=True)
+    compare_coin(ck, FIB_RPO, FIB_OPTS[3], 1, rpo=True)
+    compare_coin(ck, BF_RPO, BF_OPTS[3], 3, rpo=True)
     torch.cuda.empty_cache()
     compare_lde_kernels(ck)
     torch.cuda.empty_cache()
@@ -2058,7 +2084,7 @@ def main() -> int:
     rescue_n = rescue_air_big.lde_domain().size
     compare_sha_grind(ck, RESCUE, RESCUE_OPTS[2])
     compare_tree(ck, RESCUE, rescue_n, min(rescue_n, SHA_SAMPLE), sha=True)
-    compare_coin(ck, RESCUE, RESCUE_OPTS[3])
+    compare_coin(ck, RESCUE, RESCUE_OPTS[3], 1)
     torch.cuda.empty_cache()
     compare_big_kernels(ck)
     torch.cuda.empty_cache()

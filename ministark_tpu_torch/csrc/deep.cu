@@ -27,23 +27,36 @@
 //    stores.  The host picks lanes (ops/deep.py deep_lanes): two for Fq3
 //    transcripts, one for Fp ones (timed in turns, scripts/ab_kernels.py).
 //  - OOD: block (group, chunk) streams the chunk's points of the group's
-//    columns, accumulates each pair in registers (P pairs a group: 4 in
-//    Fq3, 8 in Fp; two points a group, so that a thread keeps two
-//    weights), reduces over the block with warp shuffles and writes one
-//    partial a pair; a second launch sums the chunks' partials.  P and the
-//    block's threads were timed in turns (scripts/ab_kernels.py
-//    --ood-variants): more pairs a group read the weights' rows fewer
-//    times but keep more registers (P = 16: 108-210), fewer warps an SM.  A group's blocks
-//    of one chunk run side by side (group is the fast grid dimension), so
-//    the inverse rows and g^i they share are read from L2.  Staging the
-//    weights of a tile of points in shared memory once for all the groups
-//    (scripts/ood_staged.cu) ran slower on the brainfuck path
-//    (scripts/ab_kernels.py --ood-staged).
+//    columns, a thread every THREADS-th point: first every load of the
+//    point (unused pairs repeat a valid column, so no load waits on a
+//    branch; through the read-only cache), then each pair's products added
+//    unreduced into 160-bit accumulators (deep.cuh `ood_mac`: a 32-bit
+//    carry chain, no reduction a term), reduced mod p once a thread before
+//    the block's warp-shuffle sum; one partial a pair and chunk, and a
+//    second launch sums the chunks' partials.  A thread keeps its point's
+//    weights in its column of a shared-memory table, which each pair reads
+//    at its slot's offset.  g^i is not read: the block's first thread
+//    makes the table g^(2^b) from gpow[0] and gpow[1] (the row is f g^i:
+//    all of it or a rank's cyclic share), each thread its first power from
+//    it and then one product a point.  The grid is one wave of the blocks
+//    the card holds (deep.cuh ood_chunk_count over
+//    cudaOccupancyMaxActiveBlocksPerMultiprocessor: at least enough that
+//    no thread takes more than OOD_MAX_RUN points; the wrapper sizes the
+//    partials by ms_ood_chunks), so the first thread's table is made once
+//    an SM.  Fp transcripts (bound by bytes) take every pair in one group
+//    (P the smallest of 16, 20, 32 pairs that holds them, up to 4
+//    points), so each column and inverse row is read once a point.  Fq3
+//    transcripts (bound by operations) keep groups of two points: OOD_P3
+//    pairs of Fq3 columns, OOD_P30 of Fp columns (three accumulators a
+//    pair, not nine products); an Fq3 column's products take the
+//    schoolbook form (deep.cuh OOD_KARA: the lazy Karatsuba was no
+//    faster).  P, P0, the form and the threads were timed in turns
+//    (scripts/ab_kernels.py --ood-variants; --ood against the grouped
+//    kernel this replaced, scripts/ood_grouped.cu).
 #include "deep.cuh"
 #include "launch.cuh"
 
 #define DEEP_THREADS 256
-#define OOD_THREADS 256
 
 template <class F>
 __global__ void __launch_bounds__(DEEP_THREADS)
@@ -109,6 +122,13 @@ MS_API int ms_deep_ext3(const int64_t* plan, int64_t T, int64_t nseg,
 
 // -- the OOD sums ---------------------------------------------------------------
 
+#define OOD_W 4        // points a group of an Fp transcript
+#define OOD_T 128      // threads a block, Fp
+#define OOD_W3 2       // points a group of an Fq3 transcript
+#define OOD_P3 4       // pairs a group of Fq3 columns, Fq3 transcripts
+#define OOD_P30 12     // pairs a group of Fp columns, Fq3 transcripts
+#define OOD_T3 128     // threads a block, Fq3
+
 __device__ __forceinline__ uint64_t shfl_down(uint64_t v, int d) {
     return __shfl_down_sync(0xffffffffu, (unsigned long long)v, d);
 }
@@ -132,39 +152,87 @@ __device__ __forceinline__ typename F::T block_sum(typename F::T v,
     return v;
 }
 
-template <class F, int P, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-    ood_kernel(const int64_t* __restrict__ recs,
-               const uint64_t* __restrict__ gpow,
-               uint64_t* __restrict__ partial, int64_t n, int64_t chunk,
-               int64_t pairs) {
-    typedef typename F::T T;
-    __shared__ int64_t rec[OOD_RECORD(P)];
-    __shared__ T red[THREADS / 32];
-    const int64_t words = OOD_RECORD(P);
-    for (int k = threadIdx.x; k < words; k += blockDim.x)
-        rec[k] = recs[blockIdx.x * words + k];
-    __syncthreads();
-    T acc[P];
+// A block's points a + threadIdx.x + k THREADS < b of one group, its first
+// Q pairs, columns of kind K (Fq3 transcripts; KARA: Fq3 columns in
+// Karatsuba form), then its partial sums; gi = g^(first point)
+template <bool EXT, int K, bool KARA, int Q, int P, int W, int THREADS>
+__device__ __forceinline__ void ood_block(const OodRec<P, W>& r, uint32_t a,
+                                          uint32_t b, uint32_t n, uint64_t gi,
+                                          uint64_t step, uint64_t* wt,
+                                          uint64_t* partial, int64_t pairs,
+                                          gl3* red) {
+    constexpr bool KA = KARA && K == 1;
+    constexpr int A = OOD_ACCS(EXT, KA);
+    ood_acc acc[Q * A];
 #pragma unroll
-    for (int p = 0; p < P; p++) acc[p] = F::zero();
-    const int64_t a = blockIdx.y * chunk;
-    const int64_t b = a + chunk < n ? a + chunk : n;
-    for (int64_t i = a + threadIdx.x; i < b; i += blockDim.x)
-        ood_point<F, P>(rec, i, n, gpow[i], acc);
-    const int64_t np = rec[0];
+    for (int p = 0; p < Q * A; p++) ood_acc_zero(acc[p]);
+    for (uint32_t i = a + threadIdx.x; i < b; i += THREADS) {
+        if (EXT)
+            ood_point_fq3<Q, P, W, K, KARA>(r, i, n, gi, acc, wt, THREADS);
+        else
+            ood_point_fp<P, W>(r, i, gi, acc, wt, THREADS);
+        gi = gl_mul_cc_lazy(gi, step);
+    }
+    const int64_t np = r.pairs();
 #pragma unroll
-    for (int p = 0; p < P; p++) {
+    for (int p = 0; p < Q; p++) {
         if (p < np) {
-            const T v = block_sum<F>(acc[p], red);
-            if (threadIdx.x == 0) {
-                const int64_t o = rec[OOD_OUT(P, p)];
-                for (int k = 0; k < F::SLOTS; k++)
-                    partial[ood_partial_index(blockIdx.y, k, o, pairs,
-                                              F::SLOTS)] = F::plane(v, k);
+            const int64_t o = r.out(p);
+            if (EXT) {
+                const gl3 v = block_sum<dp_fq3>(
+                    ood_finish_fq3<KA>(acc + p * A), red);
+                if (threadIdx.x == 0)
+                    for (int k = 0; k < 3; k++)
+                        partial[ood_partial_index(blockIdx.y, k, o, pairs,
+                                                  3)] = dp_fq3::plane(v, k);
+            } else {
+                const uint64_t v = block_sum<dp_fp>(
+                    ood_acc_reduce(acc[p]), (uint64_t*)red);
+                if (threadIdx.x == 0)
+                    partial[ood_partial_index(blockIdx.y, 0, o, pairs, 1)] = v;
             }
         }
     }
+}
+
+// P: pairs a group (Fp transcripts; Fq3 columns of Fq3 transcripts), P0:
+// pairs a group of Fp columns in an Fq3 transcript (P for Fp ones); the
+// records hold max(P, P0)
+template <bool EXT, bool KARA, int P, int P0, int W, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+    ood_kernel(const int64_t* __restrict__ recs,
+               const uint64_t* __restrict__ gpow,
+               uint64_t* __restrict__ partial, uint32_t n, uint32_t chunk,
+               int64_t pairs) {
+    static_assert(THREADS == 128 || THREADS == 256, "THREADS: 128 or 256");
+    constexpr int LOG_T = THREADS == 128 ? 7 : 8;
+    constexpr int RP = P > P0 ? P : P0;
+    constexpr int NW = OOD_WEIGHT_WORDS(EXT, KARA) * W;
+    __shared__ int64_t rec[OOD_RECORD(RP, W)];
+    __shared__ uint64_t tbl[32];
+    __shared__ uint64_t first;
+    __shared__ gl3 red[THREADS / 32];
+    __shared__ uint64_t wt[NW * THREADS];  // each thread's weight table
+    const int64_t words = OOD_RECORD(RP, W);
+    for (int k = threadIdx.x; k < words; k += THREADS)
+        rec[k] = recs[blockIdx.x * words + k];
+    const uint32_t a = blockIdx.y * chunk;
+    const uint32_t b = a >= n ? a : n - a > chunk ? a + chunk : n;
+    if (threadIdx.x == 0) {
+        ood_pow2_table(gpow[0], gpow[n > 1 ? 1 : 0], n, tbl);
+        first = ood_power(tbl, gpow[0], a);
+    }
+    __syncthreads();
+    const uint64_t gi = ood_power(tbl, first, threadIdx.x);
+    const uint64_t step = tbl[LOG_T];
+    const OodRec<RP, W> r{rec};
+    uint64_t* t = wt + threadIdx.x;
+    if (EXT && r.kind())
+        ood_block<EXT, 1, KARA, P, RP, W, THREADS>(r, a, b, n, gi, step, t,
+                                                   partial, pairs, red);
+    else
+        ood_block<EXT, 0, KARA, P0, RP, W, THREADS>(r, a, b, n, gi, step, t,
+                                                    partial, pairs, red);
 }
 
 // out[k] = sum over the chunks of partial[c * K + k], a block a word
@@ -180,37 +248,87 @@ __global__ void __launch_bounds__(256)
     if (threadIdx.x == 0) out[k] = v;
 }
 
-template <class F, int P, int THREADS = OOD_THREADS>
+// The chunks a launch of this instantiation cuts a group's n points into
+// (deep.cuh ood_chunk_count, over the blocks the card holds at once:
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+template <bool EXT, bool KARA, int P, int P0, int W, int THREADS>
+static int64_t ood_chunks(int64_t n, int64_t groups) {
+    static int resident = 0;
+    if (!resident) {
+        int dev = 0, sms = 0, per = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per, ood_kernel<EXT, KARA, P, P0, W, THREADS>, THREADS, 0);
+        resident = sms * (per > 0 ? per : 1);
+    }
+    return ood_chunk_count(n, groups, resident, THREADS);
+}
+
+// capacity: the chunks the partials hold (ms_ood_chunks' count)
+template <bool EXT, bool KARA, int P, int P0, int W, int THREADS>
 static int launch_ood(const int64_t* recs, int64_t groups,
                       const uint64_t* gpow, uint64_t* partial, uint64_t* out,
-                      int64_t n, int64_t chunks, int64_t pairs,
+                      int64_t n, int64_t capacity, int64_t pairs,
                       cudaStream_t stream) {
-    if (groups > 65535 || chunks < 1 || chunks > 65535)
-        return (int)cudaErrorInvalidValue;
+    if (groups > 65535 || n > (1LL << 31)) return (int)cudaErrorInvalidValue;
     if (n > 0 && groups > 0 && pairs > 0) {
+        const int64_t chunks =
+            ood_chunks<EXT, KARA, P, P0, W, THREADS>(n, groups);
+        if (chunks > capacity) return (int)cudaErrorInvalidValue;
         const int64_t chunk = (n + chunks - 1) / chunks;
-        ood_kernel<F, P, THREADS><<<dim3((unsigned)groups, (unsigned)chunks),
-                                    THREADS, 0, stream>>>(recs, gpow, partial,
-                                                          n, chunk, pairs);
-        const int64_t K = F::SLOTS * pairs;
+        ood_kernel<EXT, KARA, P, P0, W, THREADS>
+            <<<dim3((unsigned)groups, (unsigned)chunks), THREADS, 0,
+               stream>>>(recs, gpow, partial, (uint32_t)n, (uint32_t)chunk,
+                         pairs);
+        const int64_t K = (EXT ? 3 : 1) * pairs;
         ood_reduce_kernel<<<(unsigned)K, 256, 0, stream>>>(
             partial, out, chunks, K);
     }
     return ms_last_error();
 }
 
-MS_API int ms_ood_sums(const int64_t* recs, int64_t groups,
-                       const uint64_t* gpow, uint64_t* partial, uint64_t* out,
-                       int64_t n, int64_t chunks, int64_t pairs,
-                       cudaStream_t stream) {
-    return launch_ood<dp_fp, 8>(recs, groups, gpow, partial, out, n, chunks,
-                                 pairs, stream);
+// The shipped instantiations: Fp transcripts every pair in one group of
+// P = 16 (S), 20 (F, R, D) or 32 (more pairs: groups of 32), 4 points; Fq3
+// transcripts OOD_P3 / OOD_P30 pairs and 2 points, the Fq3 product in
+// OOD_KARA's form
+#define OOD_FP_CASES(X) X(16) X(20) X(32)
+#define OOD_FP_ARGS(p) false, false, p, p, OOD_W, OOD_T
+#define OOD_FQ3_ARGS true, OOD_KARA, OOD_P3, OOD_P30, OOD_W3, OOD_T3
+
+// The chunks the partials must hold for a launch of ms_ood_sums at P pairs
+// a group (ext 0) or of ms_ood_sums_ext3 (ext 1) on `groups` groups of n
+// points; -1 for a P with no instantiation
+MS_API int64_t ms_ood_chunks(int64_t ext, int64_t P, int64_t n,
+                             int64_t groups) {
+    if (ext) return ood_chunks<OOD_FQ3_ARGS>(n, groups);
+#define OOD_FP_CHUNKS(p) \
+    if (P == p) return ood_chunks<OOD_FP_ARGS(p)>(n, groups);
+    OOD_FP_CASES(OOD_FP_CHUNKS)
+#undef OOD_FP_CHUNKS
+    return -1;
 }
 
+// P: the pairs a group of the records (ops/deep.py OOD_FP_PAIRS)
+MS_API int ms_ood_sums(const int64_t* recs, int64_t groups,
+                       const uint64_t* gpow, uint64_t* partial, uint64_t* out,
+                       int64_t n, int64_t capacity, int64_t pairs, int64_t P,
+                       cudaStream_t stream) {
+#define OOD_FP_LAUNCH(p)                                                  \
+    if (P == p)                                                           \
+        return launch_ood<OOD_FP_ARGS(p)>(recs, groups, gpow, partial, out, \
+                                          n, capacity, pairs, stream);
+    OOD_FP_CASES(OOD_FP_LAUNCH)
+#undef OOD_FP_LAUNCH
+    return (int)cudaErrorInvalidValue;
+}
+
+// the records of OOD_P3 pairs of Fq3 columns or OOD_P30 of Fp columns
+// (ops/deep.py OOD_P3, OOD_P30)
 MS_API int ms_ood_sums_ext3(const int64_t* recs, int64_t groups,
                             const uint64_t* gpow, uint64_t* partial,
-                            uint64_t* out, int64_t n, int64_t chunks,
+                            uint64_t* out, int64_t n, int64_t capacity,
                             int64_t pairs, cudaStream_t stream) {
-    return launch_ood<dp_fq3, 4>(recs, groups, gpow, partial, out, n, chunks,
-                                 pairs, stream);
+    return launch_ood<OOD_FQ3_ARGS>(recs, groups, gpow, partial, out, n,
+                                    capacity, pairs, stream);
 }

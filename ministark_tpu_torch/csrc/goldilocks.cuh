@@ -32,7 +32,10 @@ GL_HD uint64_t gl_sub(uint64_t a, uint64_t b) {
 
 GL_HD uint64_t gl_neg(uint64_t a) { return a == 0 ? 0 : GL_P - a; }
 
-GL_HD uint64_t gl_reduce128(uint64_t lo, uint64_t hi) {
+// lo + hi 2^64 mod p, lazy (any u64 congruent): lo - hi_hi (a borrow
+// takes 2^64 mod p more off), plus hi_lo (2^32 - 1) (a carry adds 2^64
+// mod p back)
+GL_HD uint64_t gl_reduce_lazy(uint64_t lo, uint64_t hi) {
     uint64_t hi_hi = hi >> 32;
     uint64_t hi_lo = hi & 0xFFFFFFFFULL;
     uint64_t t = lo - hi_hi;
@@ -40,8 +43,12 @@ GL_HD uint64_t gl_reduce128(uint64_t lo, uint64_t hi) {
     uint64_t u = (hi_lo << 32) - hi_lo;        // hi_lo * (2^32 - 1)
     uint64_t r = t + u;
     if (r < t) r += GL_EPS;                    // carry: +2^64 = +(2^32 - 1)
-    if (r >= GL_P) r -= GL_P;
     return r;
+}
+
+GL_HD uint64_t gl_reduce128(uint64_t lo, uint64_t hi) {
+    const uint64_t r = gl_reduce_lazy(lo, hi);
+    return r >= GL_P ? r - GL_P : r;
 }
 
 GL_HD uint64_t gl_mul(uint64_t a, uint64_t b) {
@@ -118,12 +125,14 @@ GL_HD uint64_t gl_mul_cc(uint64_t a, uint64_t b) {
 
 // The products as function objects, for routines templated on theirs:
 // operator() is canonical, lazy() may leave any u64 congruent to the
-// product (an input to further products, not to gl_add or gl_sub).
+// product (an input to further products, not to gl_add or gl_sub), sqr()
+// is lazy(a, a).
 struct gl_mul_fn {
     GL_FN uint64_t operator()(uint64_t a, uint64_t b) const {
         return gl_mul(a, b);
     }
     GL_FN uint64_t lazy(uint64_t a, uint64_t b) const { return gl_mul(a, b); }
+    GL_FN uint64_t sqr(uint64_t a) const { return gl_mul(a, a); }
 };
 struct gl_mul_cc_fn {
     GL_FN uint64_t operator()(uint64_t a, uint64_t b) const {
@@ -132,6 +141,43 @@ struct gl_mul_cc_fn {
     GL_FN uint64_t lazy(uint64_t a, uint64_t b) const {
         return gl_mul_cc_lazy(a, b);
     }
+    GL_FN uint64_t sqr(uint64_t a) const { return gl_mul_cc_lazy(a, a); }
+};
+
+// a * b for any u64 a and b, lazy, from four independent 32x32 -> 64
+// products and 64-bit adds: a shorter chain of dependent instructions than
+// gl_mul_cc_lazy's carry chains, for chains of products (the device
+// coin's RPO-256 S-boxes: scripts/coin_single.cu times both)
+GL_HD uint64_t gl_mul_wide_lazy(uint64_t a, uint64_t b) {
+    const uint32_t a0 = (uint32_t)a, a1 = (uint32_t)(a >> 32);
+    const uint32_t b0 = (uint32_t)b, b1 = (uint32_t)(b >> 32);
+    const uint64_t p00 = (uint64_t)a0 * b0, p01 = (uint64_t)a0 * b1;
+    const uint64_t p10 = (uint64_t)a1 * b0, p11 = (uint64_t)a1 * b1;
+    const uint64_t mid = p01 + p10;
+    const uint64_t mc = (uint64_t)(mid < p01 ? 1 : 0) << 32;
+    const uint64_t lo = p00 + (mid << 32);
+    const uint64_t hi = p11 + (mid >> 32) + mc + (lo < p00 ? 1 : 0);
+    return gl_reduce_lazy(lo, hi);
+}
+
+// a^2 the same way, three products (a0 a1 doubled by the shift)
+GL_HD uint64_t gl_sqr_wide_lazy(uint64_t a) {
+    const uint32_t a0 = (uint32_t)a, a1 = (uint32_t)(a >> 32);
+    const uint64_t p00 = (uint64_t)a0 * a0, p01 = (uint64_t)a0 * a1;
+    const uint64_t p11 = (uint64_t)a1 * a1;
+    const uint64_t lo = p00 + (p01 << 33);
+    const uint64_t hi = p11 + (p01 >> 31) + (lo < p00 ? 1 : 0);
+    return gl_reduce_lazy(lo, hi);
+}
+
+struct gl_mul_wide_fn {
+    GL_FN uint64_t operator()(uint64_t a, uint64_t b) const {
+        return gl_canon(gl_mul_wide_lazy(a, b));
+    }
+    GL_FN uint64_t lazy(uint64_t a, uint64_t b) const {
+        return gl_mul_wide_lazy(a, b);
+    }
+    GL_FN uint64_t sqr(uint64_t a) const { return gl_sqr_wide_lazy(a); }
 };
 
 // a^(2^k) by k squarings (lazy)

@@ -88,7 +88,7 @@ template <int E, class Mul>
 GL_HD void rpo_sqr_n_lanes(uint64_t* x, int k, Mul mul) {
     for (int i = 0; i < k; i++) {
 #pragma unroll
-        for (int e = 0; e < E; e++) x[e] = mul.lazy(x[e], x[e]);
+        for (int e = 0; e < E; e++) x[e] = mul.sqr(x[e]);
     }
 }
 
@@ -97,8 +97,8 @@ template <int E, class Mul>
 GL_HD void rpo_pow7_lanes(uint64_t* x, Mul mul) {
 #pragma unroll
     for (int e = 0; e < E; e++) {
-        const uint64_t x3 = mul.lazy(mul.lazy(x[e], x[e]), x[e]);
-        x[e] = mul.lazy(mul.lazy(x3, x3), x[e]);
+        const uint64_t x3 = mul.lazy(mul.sqr(x[e]), x[e]);
+        x[e] = mul.lazy(mul.sqr(x3), x[e]);
     }
 }
 
@@ -109,8 +109,8 @@ GL_HD void rpo_pow_inv7_lanes(uint64_t* x, Mul mul) {
     uint64_t t1[E], t2[E], t3[E], t4[E], t6[E], a[E];
 #pragma unroll
     for (int e = 0; e < E; e++) {
-        t1[e] = mul.lazy(x[e], x[e]);                      // x^2
-        a[e] = t2[e] = mul.lazy(t1[e], t1[e]);             // x^4
+        t1[e] = mul.sqr(x[e]);                             // x^2
+        a[e] = t2[e] = mul.sqr(t1[e]);                     // x^4
     }
     rpo_sqr_n_lanes<E>(a, 3, mul);
 #pragma unroll
@@ -128,7 +128,7 @@ GL_HD void rpo_pow_inv7_lanes(uint64_t* x, Mul mul) {
 #pragma unroll
     for (int e = 0; e < E; e++) {
         a[e] = mul.lazy(a[e], t6[e]);                      // t7
-        a[e] = mul.lazy(mul.lazy(a[e], a[e]), t6[e]);
+        a[e] = mul.lazy(mul.sqr(a[e]), t6[e]);
     }
     rpo_sqr_n_lanes<E>(a, 2, mul);
 #pragma unroll

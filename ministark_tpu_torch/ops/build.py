@@ -156,6 +156,16 @@ class CudaKernel:
             hit = self._entries[key] = (f, lib)
         return hit
 
+    def query(self, fn: str, *args: int) -> int:
+        """Entry point `fn` of the kernel's library called on int64 args,
+        no stream and no launch (a host-side answer such as a launch's
+        shape): its int64 result."""
+        self.build()
+        f = getattr(_LIBS[self._text(None)], fn)
+        f.restype = ctypes.c_int64
+        f.argtypes = [ctypes.c_int64] * len(args)
+        return f(*args)
+
     def launch(self, fn: str, *args, source_text: str | None = None):
         """Call entry point `fn` with its args (ctypes-typed, or plain ints
         where the kernel declared its prototype) plus the current stream;

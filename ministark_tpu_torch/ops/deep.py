@@ -23,13 +23,16 @@ KERNEL_OOD_EXT3 = build.register(
     "ood_sums_ext3", "deep.cu",
     replaces="ministark_tpu/composer.py:76 _ood_program_impl (prog_ext, XLA)")
 
-# The OOD kernels' groups (csrc/deep.cuh): at most OOD_W points and
-# OOD_PAIRS[ext] (point, column) pairs each
-OOD_W = 2
-OOD_PAIRS = {False: 8, True: 4}
-# points a block of the OOD kernel takes at least, and the blocks aimed at
-OOD_CHUNK_MIN = 512
-OOD_BLOCKS = 132 * 16
+# The OOD kernels' groups (csrc/deep.cuh, deep.cu): at most OOD_W[ext]
+# points and P (point, column) pairs each.  An Fp transcript's group holds
+# P = the first of OOD_FP_PAIRS that takes all its pairs (the kernel's
+# instantiations); an Fq3 transcript's OOD_P3 pairs of Fq3 columns or
+# OOD_P30 of Fp columns (deep.cu's OOD_P3, OOD_P30).  The launch's chunks
+# of points are the kernel's to choose (deep.cu ms_ood_chunks).
+OOD_W = {False: 4, True: 2}
+OOD_FP_PAIRS = (16, 20, 32)
+OOD_P3 = 4
+OOD_P30 = 12
 # columns the plain OOD sums multiply by the weights at once, as
 # (columns, 3, n) elements: bounds the plain version's temporaries
 PLAIN_OOD_ELEMS = 1 << 26
@@ -212,56 +215,98 @@ def ood_sums_ext3_plain(cols, invs, pairs, gpow):
     return _plain_sums(cols, invs, pairs, gpow, True)
 
 
-def ood_record_words(ext: bool, P: int | None = None) -> int:
-    """int64 words of one OOD group's record (csrc/deep.cuh OOD_RECORD), of
-    P (by default OOD_PAIRS[ext]) pairs."""
-    return 3 + OOD_W + 3 * (P or OOD_PAIRS[ext])
+def ood_pairs_a_group(ext: bool, npairs: int) -> tuple[int, int]:
+    """(P, P0): the pairs a group of the OOD kernel, of Fq3 columns and of
+    Fp columns.  An Fq3 transcript's (OOD_P3, OOD_P30); an Fp one's the
+    first of OOD_FP_PAIRS that holds all `npairs` (one group, each row read
+    once a point), else the largest, both."""
+    if ext:
+        return OOD_P3, OOD_P30
+    P = next((P for P in OOD_FP_PAIRS if P >= npairs), OOD_FP_PAIRS[-1])
+    return P, P
 
 
-def ood_groups(cols, invs, pairs, ext: bool, P: int | None = None) -> list:
-    """The OOD kernel's groups (csrc/deep.cuh), one record each, flattened:
-    a column's pairs go to one group where they fit (columns of one kind a
-    group, at most OOD_W points and OOD_PAIRS[ext] pairs), in the order of
-    the columns' first pairs; a pair that reads the column of the pair
-    before it is marked so that the column is loaded once a point.  P: the
-    kernel's pairs a group, by default OOD_PAIRS[ext]."""
-    P = P or OOD_PAIRS[ext]
-    col_ptrs = {c: cols[c].data_ptr() for c in {c for _j, c in pairs}}
-    row_ptrs = {j: invs[j].data_ptr() for j in {j for j, _c in pairs}}
+def ood_record_words(ext: bool, P: int, P0: int | None = None) -> int:
+    """int64 words of one OOD group's record of max(P, P0) pairs
+    (csrc/deep.cuh OOD_RECORD)."""
+    return 3 + OOD_W[ext] + 3 * max(P, P0 or P)
+
+
+def ood_groups(cols, invs, pairs, ext: bool, P: int,
+               P0: int | None = None) -> list:
+    """The OOD kernel's groups (csrc/deep.cuh), one record each of max(P,
+    P0) pairs, flattened: a column's pairs go to one group where they fit
+    (columns of one kind a group, at most OOD_W[ext] points and P pairs, P0
+    for Fp columns in an Fq3 transcript), in the order of the columns' first
+    pairs.  Unused slots and pairs repeat the group's first inverse row and
+    column (the kernel loads them all, unconditionally).  invs: one
+    contiguous tensor, row j at invs[j]."""
+    W = OOD_W[ext]
+    P0 = P0 or P
+    RP = max(P, P0)
+    row0, row_bytes = invs.data_ptr(), invs.stride(0) * 8
     by_col: dict = {}
     for k, (j, c) in enumerate(pairs):
         by_col.setdefault(c, []).append((k, j))
-    records, cur = [], []
+    records: list = []
+    ptrs: list = []   # the group's pairs: column pointers, slots, outputs
+    slots: list = []
+    outs: list = []
+    pts: list = []    # its points, in order of first use
+    wide = False
 
     def flush():
-        if not cur:
+        if not ptrs:
             return
-        pts = list(dict.fromkeys(j for _k, j, _c, _r in cur))
-        pad = [0] * (P - len(cur))
-        records.extend(
-            [len(cur), len(pts), int(cols[cur[0][2]].ndim == 2)]
-            + [row_ptrs[j] for j in pts] + [0] * (OOD_W - len(pts))
-            + [col_ptrs[c] for _k, _j, c, _r in cur] + pad
-            + [pts.index(j) | r << 1 for _k, j, _c, r in cur] + pad
-            + [k for k, _j, _c, _r in cur] + pad)
-        cur.clear()
+        m = len(ptrs)
+        rows = [row0 + j * row_bytes for j in pts]
+        records.extend([m, len(pts), int(wide)])
+        records.extend(rows + rows[:1] * (W - len(pts)))
+        records.extend(ptrs + ptrs[:1] * (RP - m))
+        records.extend(slots + [0] * (RP - m))
+        records.extend(outs + [0] * (RP - m))
+        ptrs.clear()
+        slots.clear()
+        outs.clear()
+        pts.clear()
 
     for c, kjs in by_col.items():
-        pts = {j for _k, j, _c, _r in cur}
-        if cur and (len(cur) + len(kjs) > P
-                    or len(pts | {j for _k, j in kjs}) > OOD_W
-                    or cols[cur[0][2]].ndim != cols[c].ndim):
+        col = cols[c]
+        kind = col.ndim == 2
+        cap = P if kind or not ext else P0
+        new_pts = {j for _k, j in kjs}.difference(pts)
+        if ptrs and (len(ptrs) + len(kjs) > cap
+                     or len(pts) + len(new_pts) > W or kind != wide):
             flush()
-        first = True
+        wide = kind
+        ptr = col.data_ptr()
         for k, j in kjs:  # a column of more pairs or points than a group
-            if len(cur) == P or len({jj for _k, jj, _c, _r in cur} | {j}) \
-                    > OOD_W:
+            if len(ptrs) == cap or (j not in pts and len(pts) == W):
                 flush()
-                first = True
-            cur.append((k, j, c, 0 if first else 1))
-            first = False
+            if j not in pts:
+                pts.append(j)
+            ptrs.append(ptr)
+            slots.append(pts.index(j))
+            outs.append(k)
     flush()
     return records
+
+
+def _check_geometric(gpow: torch.Tensor):
+    """The kernel reads gpow[0] and gpow[1] only and makes f g^i from
+    them: raise unless the row's middle and last powers agree.  Checked
+    once a tensor version: one read back from the card, as the prove reads
+    its OOD sums back just after."""
+    n = gpow.shape[0]
+    if n < 3 or getattr(gpow, "_ood_geometric", None) == gpow._version:
+        return
+    idx = torch.tensor([0, 1, n // 2, n - 1], device=gpow.device)
+    f, fg, mid, last = (v % (1 << 64) % fd.P for v in gpow[idx].tolist())
+    g = fg * pow(f, -1, fd.P) % fd.P if f else 0
+    if not f or (f * pow(g, n // 2, fd.P) % fd.P != mid
+                 or f * pow(g, n - 1, fd.P) % fd.P != last):
+        raise ValueError("ood_sums: gpow is not a geometric row f g^i")
+    gpow._ood_geometric = gpow._version
 
 
 def _ood(kernel, fn, cols, invs, pairs, gpow, ext: bool):
@@ -271,6 +316,8 @@ def _ood(kernel, fn, cols, invs, pairs, gpow, ext: bool):
     if invs.shape[1:] != ((3, n) if ext else (n,)) or invs.shape[0] > 65535:
         raise ValueError(f"ood_sums: inverse rows of shape "
                          f"{tuple(invs.shape)} for {n} points")
+    if n > 1 << 31:
+        raise ValueError(f"ood_sums: {n} points, more than 2^31")
     if any(not 0 <= j < invs.shape[0] for j, _c in pairs):
         raise ValueError("ood_sums: a pair of no inverse row")
     _check_inputs("ood_sums: col", [cols[c] for _j, c in pairs],
@@ -279,32 +326,31 @@ def _ood(kernel, fn, cols, invs, pairs, gpow, ext: bool):
     out = torch.empty(slots * len(pairs), dtype=torch.int64,
                       device=gpow.device)
     if pairs:
-        words = ood_groups(cols, invs, pairs, ext)
-        groups = len(words) // ood_record_words(ext)
-        chunks = ood_chunks(n, groups)
+        _check_geometric(gpow)
+        P, P0 = ood_pairs_a_group(ext, len(pairs))
+        words = ood_groups(cols, invs, pairs, ext, P, P0)
+        groups = len(words) // ood_record_words(ext, P, P0)
+        chunks = kernel.query("ms_ood_chunks", int(ext), P, n, groups)
         recs = _int64_table(words, gpow.device)
         partial = torch.empty(chunks * slots * len(pairs), dtype=torch.int64,
                               device=gpow.device)
-        kernel.launch(fn, build.ptr(recs), build.i64(groups),
-                      build.ptr(gpow), build.ptr(partial), build.ptr(out),
-                      build.i64(n), build.i64(chunks), build.i64(len(pairs)))
+        args = [build.ptr(recs), build.i64(groups), build.ptr(gpow),
+                build.ptr(partial), build.ptr(out), build.i64(n),
+                build.i64(chunks), build.i64(len(pairs))]
+        kernel.launch(fn, *args, *(() if ext else (build.i64(P),)))
     return out.reshape(3, -1) if ext else out
-
-
-def ood_chunks(n: int, groups: int) -> int:
-    """Blocks a group's points are cut into: about OOD_BLOCKS blocks in all,
-    none shorter than OOD_CHUNK_MIN points."""
-    aim = -(-OOD_BLOCKS // max(groups, 1))
-    return max(1, min(aim, -(-n // OOD_CHUNK_MIN), 65535))
 
 
 def ood_sums(cols: list, invs: torch.Tensor, pairs: list,
              gpow: torch.Tensor) -> torch.Tensor:
     """S[k] = sum_i cols[c][i] * invs[j][i] * gpow[i] for each pair k =
     (j, c), in Fp: cols (n,) vectors, invs (npts, n), gpow (n,) the powers
-    g^i of the LDE group; returns (len(pairs),).  CUDA tensors launch the
-    kernel (two launches: the groups' partial sums, then their sum); CPU
-    tensors take the plain version."""
+    f g^i (f = 1 for the whole LDE group, g^r for a rank's cyclic share of
+    it); returns (len(pairs),).  CUDA tensors launch the kernel (two
+    launches: the groups' partial sums, then their sum), which reads only
+    gpow[0] and gpow[1] and makes the other powers (a row that is not
+    geometric raises); CPU tensors take the plain version, which reads
+    every power."""
     if not gpow.is_cuda:
         return ood_sums_plain(cols, invs, pairs, gpow)
     return _ood(KERNEL_OOD, "ms_ood_sums", cols, invs, pairs, gpow, False)
@@ -313,9 +359,9 @@ def ood_sums(cols: list, invs: torch.Tensor, pairs: list,
 def ood_sums_ext3(cols: list, invs: torch.Tensor, pairs: list,
                   gpow: torch.Tensor) -> torch.Tensor:
     """The OOD sums of an Fq3 transcript: cols (n,) Fp or (3, n) Fq3
-    columns, invs (npts, 3, n) Fq3 inverse rows, gpow (n,); returns (3,
-    len(pairs)).  CUDA tensors launch the kernel; CPU tensors take the
-    plain version."""
+    columns, invs (npts, 3, n) Fq3 inverse rows, gpow (n,) as for
+    ``ood_sums``; returns (3, len(pairs)).  CUDA tensors launch the kernel;
+    CPU tensors take the plain version."""
     if not gpow.is_cuda:
         return ood_sums_ext3_plain(cols, invs, pairs, gpow)
     return _ood(KERNEL_OOD_EXT3, "ms_ood_sums_ext3", cols, invs, pairs, gpow,

@@ -12,9 +12,11 @@ of chip_smoke.py's paths.
     git show <commit>:ministark_tpu_torch/csrc/deep.cu > DIR/deep.cu
     git show <commit>:ministark_tpu_torch/csrc/goldilocks.cuh > DIR/goldilocks.cuh
     git archive <commit> | tar -x -C DIR/parent
-    python3 scripts/ab_kernels.py DIR [--reps N] [--paths F,B,W,L,R,H]
+    python3 scripts/ab_kernels.py DIR [--reps N] [--turns N]
+                                      [--paths F,B,W,L,R,H,S,D]
                                       [--inv-variants] [--rpo-sweep]
                                       [--old-tree DIR/parent]
+                                      [--ood] [--coin] [--ood-variants]
 
 Builds each of the sources found in DIR with the port's nvcc flags into
 DIR, its includes looked up in DIR before csrc/ (so an old inv.cu takes
@@ -25,8 +27,9 @@ it beside the current kernels (the old entry points: ``ms_col_ntt``,
 ``ms_hash_rows``, ``ms_merge``).
 For every shape it checks that old and new give the same values, then
 times them in turns (old, new, new, old; CUDA events over ``reps``
-launches each, after a warm-up) and prints the mean of each version's two
-turns; one JSON line at the end.  Paths as in chip_smoke.py: F (fib 2^24
+launches each, after a warm-up), ``--turns`` rounds of them, and prints
+the mean of each version's turns with the range of the rounds' means; one
+JSON line at the end.  Paths as in chip_smoke.py: F (fib 2^24
 values: the 2^23-point 8-column LDE, one 2^23-value inverse), B
 (brainfuck 2^20 rows: 2^24-point LDEs of 17, 27 and 48 planes, the three
 Fp denominators and the three Fq3 DEEP rows of 2^24 values to invert), W
@@ -61,10 +64,18 @@ kernel and by the new one with E = 1 and 3 elements of a state a lane
 (the crossover ``ops/rpo256.py`` takes), and a 2^15-leaf tree with the
 tops launch taking the last 16 .. 64 leaves or none.
 
-``--ood-variants`` builds csrc/deep.cu with an entry point for each OOD
-sums variant (pairs a group, threads a block; OOD_VARIANTS), prints
+``--ood`` times kernel F's OOD sums against the grouped kernel they
+replaced (scripts/ood_grouped.cu, kept in the repository; DIR only holds
+its build) in turns at F, R, S, D, B, W and H's shapes.  ``--coin`` times
+the device coin steps against the single-thread SHA-256 step and the
+RPO-256 step that handed the whole state around (scripts/coin_single.cu)
+at each prove's (k, N), a launch each, device time alone too, and prints
+both RPO-256 steps' parts from clock64() stamps.  ``--ood-variants``
+builds csrc/deep.cu with an entry point for each OOD sums variant (pairs a
+group, threads a block, an Fq3 column's products in Karatsuba or
+schoolbook form; OOD_VARIANTS), prints
 ptxas's registers, and times them in turns with the shipped kernel at F's,
-B's and W's shapes.  ``--ood-staged`` times the shipped OOD kernel against
+S's, B's and W's shapes.  ``--ood-staged`` times the shipped OOD kernel against
 the staged design of scripts/ood_staged.cu (a block stages the weights of
 a tile of points in shared memory once for all its groups, a group a
 warp) at 2, 4 and 8 pairs a group, in turns, at the same shapes.
@@ -631,26 +642,30 @@ def ef_ab(paths, old, old_tree, rand, stream, record, record_variants,
         torch.cuda.empty_cache()
 
 
-# kernel F's OOD sums: (Fq3, P pairs a group, threads a block)
-OOD_VARIANTS = [(False, 4, 256), (False, 8, 128), (False, 8, 256),
-                (False, 16, 256), (True, 2, 256), (True, 4, 128),
-                (True, 4, 256), (True, 8, 256)]
+# kernel F's OOD sums: (Fq3, Karatsuba, P pairs a group, P0 pairs a group
+# of Fp columns in an Fq3 transcript, threads a block)
+OOD_VARIANTS = [(False, False, 20, 20, 128), (False, False, 16, 16, 128),
+                (True, False, 4, 12, 128), (True, True, 2, 12, 128),
+                (True, True, 3, 12, 128), (True, True, 4, 12, 128)]
 
 
 def ood_variant_name(v):
-    ext, P, T = v
-    return f"ab_ood_{'fq3' if ext else 'fp'}_p{P}_t{T}"
+    ext, kara, P, P0, T = v
+    form = ("_kara" if kara else "_school") if ext else ""
+    return f"ab_ood_{'fq3' if ext else 'fp'}{form}_p{P}_{P0}_t{T}"
 
 
 def _ood_inputs(path, rand, dev):
     """The proves' OOD sums at `path`'s shapes: (cols, invs, pairs, gpow,
-    ext) as chip_smoke.py's ood_sums rows give them."""
+    ext) as chip_smoke.py's ood_sums rows give them (R is F's, H is W's;
+    D rank 1's rows of two in F, the rows 1 + 2 i, so g^i starts at g)."""
     from ministark_tpu_torch.air import Air, ProofOptions
     from ministark_tpu_torch.models.brainfuck import (BrainfuckAirConfig,
                                                       BrainfuckClaim)
-    from ministark_tpu_torch.ntt import powers
+    from ministark_tpu_torch.ntt import Domain, powers
+    from ministark_tpu_torch.parallel.executor import domain_points
 
-    ext = path != "F"
+    ext = path in ("B", "W", "H")
     if ext:
         rows = 1 << 20 if path == "B" else 1 << 11
         air = Air(BrainfuckAirConfig, rows, BrainfuckClaim("", b"", b""),
@@ -661,20 +676,168 @@ def _ood_inputs(path, rand, dev):
         pairs = sorted({(off, c) for c, off in air.trace_arguments()},
                        key=lambda jc: (jc[1], jc[0]))
         pairs += [(2, 26 + k) for k in range(16)]
-        invs = rand(3, 3, n)
+        return cols, rand(3, 3, n), pairs, powers(7, n, dev), True
+    ncols, cb, n = (4, 8, 1 << 21) if path == "S" else (8, 1, 1 << 23)
+    pairs = [(j, c) for c in range(ncols) for j in (0, 1)]
+    pairs += [(2, ncols + k) for k in range(cb)]
+    if path == "D":
+        n //= 2
+        gpow = domain_points(Domain(2 * n, 7), 1, 2, n, dev)[1]
     else:
-        n = 1 << 23
-        cols = [rand(n) for _ in range(9)]
-        pairs = [(j, c) for c in range(8) for j in (0, 1)] + [(2, 8)]
-        invs = rand(3, n)
-    return cols, invs, pairs, powers(7, n, dev), ext
+        gpow = powers(7, n, dev)
+    return ([rand(n) for _ in range(ncols + cb)], rand(3, n), pairs, gpow,
+            False)
+
+
+def _ood_runner(lib, fn_name, cols, invs, pairs, gpow, ext, P, dev,
+                groups_fn=None, P0=None):
+    """fn() running entry point fn_name of lib (new arguments: P last for
+    Fp, the groups of P pairs, P0 of Fp columns in an Fq3 transcript, the
+    partials' room asked of ms_ood_chunks for the shipped entry points,
+    else room for one wave of 32 blocks an SM; groups_fn given: the old grouped kernel's
+    records and arguments) on groups made once, the wrapper's per-call
+    host work left out."""
+    import torch
+
+    from ministark_tpu_torch.ops import build
+    from ministark_tpu_torch.ops import deep as kdeep
+
+    n = gpow.shape[0]
+    if groups_fn is None:
+        words = kdeep.ood_groups(cols, invs, pairs, ext, P, P0)
+        ngroups = len(words) // kdeep.ood_record_words(ext, P, P0)
+        if fn_name.startswith("ms_ood_sums"):
+            q = lib.ms_ood_chunks
+            q.restype = ctypes.c_int64
+            chunks = q(*(ctypes.c_int64(v) for v in (int(ext), P, n,
+                                                       ngroups)))
+        else:
+            chunks = max(16, -(-132 * 32 // ngroups))
+        extra = () if ext else (build.i64(P),)
+    else:
+        words, ngroups, chunks = groups_fn(cols, invs, pairs, ext)
+        extra = ()
+    recs = torch.tensor(words, dtype=torch.int64).to(dev)
+    slots = 3 if ext else 1
+    partial = torch.empty(chunks * slots * len(pairs), dtype=torch.int64,
+                          device=dev)
+    fn = getattr(lib, fn_name)
+    fn.restype = ctypes.c_int
+
+    def run():
+        out = torch.empty(slots * len(pairs), dtype=torch.int64, device=dev)
+        rc = fn(build.ptr(recs), build.i64(ngroups), build.ptr(gpow),
+                build.ptr(partial), build.ptr(out), build.i64(n),
+                build.i64(chunks), build.i64(len(pairs)), *extra,
+                ctypes.c_void_p(build.current_stream()))
+        assert rc == 0, rc
+        return out.reshape(3, -1) if ext else out
+    return run
+
+
+def old_ood_groups(cols, invs, pairs, ext):
+    """The grouped kernel's records (scripts/ood_grouped.cu, as
+    ops/deep.py made them before the lazy design: two points, P = 8 pairs
+    a group for Fp and 4 for Fq3, meta bit 0 the point's slot, bit 1 a
+    reuse) with its chunks (about 132 * 16 blocks, none below 512 points);
+    returns (words, groups, chunks)."""
+    P, W = (4 if ext else 8), 2
+    col_ptrs = {c: cols[c].data_ptr() for c in {c for _j, c in pairs}}
+    row_ptrs = {j: invs[j].data_ptr() for j in {j for j, _c in pairs}}
+    by_col: dict = {}
+    for k, (j, c) in enumerate(pairs):
+        by_col.setdefault(c, []).append((k, j))
+    records, cur = [], []
+
+    def flush():
+        if not cur:
+            return
+        pts = list(dict.fromkeys(j for _k, j, _c, _r in cur))
+        pad = [0] * (P - len(cur))
+        records.extend(
+            [len(cur), len(pts), int(cols[cur[0][2]].ndim == 2)]
+            + [row_ptrs[j] for j in pts] + [0] * (W - len(pts))
+            + [col_ptrs[c] for _k, _j, c, _r in cur] + pad
+            + [pts.index(j) | r << 1 for _k, j, _c, r in cur] + pad
+            + [k for k, _j, _c, _r in cur] + pad)
+        cur.clear()
+
+    for c, kjs in by_col.items():
+        pts = {j for _k, j, _c, _r in cur}
+        if cur and (len(cur) + len(kjs) > P
+                    or len(pts | {j for _k, j in kjs}) > W
+                    or cols[cur[0][2]].ndim != cols[c].ndim):
+            flush()
+        first = True
+        for k, j in kjs:
+            if len(cur) == P or len({jj for _k, jj, _c, _r in cur} | {j}) \
+                    > W:
+                flush()
+                first = True
+            cur.append((k, j, c, 0 if first else 1))
+            first = False
+    flush()
+    groups = len(records) // (3 + W + 3 * P)
+    n = cols[pairs[0][1]].shape[-1]
+    chunks = max(1, min(-(-132 * 16 // groups), -(-n // 512), 65535))
+    return records, groups, chunks
+
+
+def _build_fixture(name, out_dir):
+    """scripts/<name>.cu built with the port's nvcc flags (ptxas -v), its
+    registers and stack frames printed; the loaded library."""
+    from ministark_tpu_torch.ops import build
+
+    so = os.path.join(out_dir, f"{name}.so")
+    proc = _nvcc(os.path.join(ROOT, "scripts", f"{name}.cu"), so, build.CSRC,
+                 "-Xptxas", "-v")
+    _, err = proc.communicate(timeout=900)
+    if proc.returncode:
+        raise RuntimeError(f"building scripts/{name}.cu failed:\n{err}")
+    print("\n".join(line for line in err.splitlines()
+                    if "registers" in line or "Compiling entry" in line
+                    or "stack frame" in line), flush=True)
+    return ctypes.CDLL(so)
+
+
+def ood_ab(paths, out_dir, rand, record, dev):
+    """Kernel F's OOD sums against the grouped kernel they replaced
+    (scripts/ood_grouped.cu), in turns, at each path's shapes (F, R: fib
+    2^23 points, 17 pairs; S: the Rescue chain's 2^21, 16 pairs; D: a
+    rank's 2^22 rows of F, from g; B: brainfuck's 2^24 points, 65 pairs;
+    W, H: hello_world's 2^15), both through their entry points on groups
+    made once."""
+    import torch
+
+    from ministark_tpu_torch.ops import deep as kdeep
+
+    old = _build_fixture("ood_grouped", out_dir)
+    kdeep.KERNEL_OOD.build()
+    from ministark_tpu_torch.ops.build import _LIBS
+
+    new_lib = _LIBS[kdeep.KERNEL_OOD._text(None)]
+    for path in ("F", "R", "S", "D", "B", "W", "H"):
+        if path not in paths:
+            continue
+        cols, invs, pairs, gpow, ext = _ood_inputs(path, rand, dev)
+        P, P0 = kdeep.ood_pairs_a_group(ext, len(pairs))
+        suffix = "_ext3" if ext else ""
+        record("ood_sums" + suffix, path, [(
+            {"old": _ood_runner(old, "ab_old_ood_sums" + suffix, cols, invs,
+                                pairs, gpow, ext, P, dev, old_ood_groups),
+             "new": _ood_runner(new_lib, "ms_ood_sums" + suffix, cols, invs,
+                                pairs, gpow, ext, P, dev, P0=P0)},
+            gpow.shape[0])])
+        del cols, invs
+        torch.cuda.empty_cache()
 
 
 def ood_variants(paths, out_dir, rand, record_variants, dev):
     """Kernel F's OOD sums built at each OOD_VARIANTS entry (pairs a group,
     threads a block; csrc/deep.cu with one entry point a variant, ptxas's
-    registers printed), each checked against the kernel as it ships and
-    timed in turns at F's, B's and W's shapes (the proves' pairs)."""
+    registers printed), each checked against the
+    kernel as it ships and timed in turns at F's, S's, B's and W's shapes
+    (the proves' pairs)."""
     import torch
 
     from ministark_tpu_torch.ops import build
@@ -682,60 +845,41 @@ def ood_variants(paths, out_dir, rand, record_variants, dev):
 
     lines = [f'#include "{os.path.join(build.CSRC, "deep.cu")}"']
     for v in OOD_VARIANTS:
-        ext, P, T = v
-        F = "dp_fq3" if ext else "dp_fp"
+        ext, kara, P, P0, T = v
+        W = kdeep.OOD_W[ext]
         lines.append(
             f"MS_API int {ood_variant_name(v)}(const int64_t* recs, "
             f"int64_t groups, const uint64_t* gpow, uint64_t* partial, "
             f"uint64_t* out, int64_t n, int64_t chunks, int64_t pairs, "
-            f"cudaStream_t stream) {{ return launch_ood<{F}, {P}, {T}>("
+            + ("" if ext else "int64_t P, ")
+            + f"cudaStream_t stream) {{ return launch_ood<"
+            f"{str(ext).lower()}, {str(kara).lower()}, {P}, {P0}, {W}, {T}>("
             f"recs, groups, gpow, partial, out, n, chunks, pairs, stream); }}")
     src = os.path.join(out_dir, "ood_variants.cu")
     with open(src, "w") as f:
         f.write("\n".join(lines) + "\n")
     proc = _nvcc(src, src + ".so", build.CSRC, "-Xptxas", "-v")
-    _, err = proc.communicate(timeout=900)
+    _, err = proc.communicate(timeout=1200)
     if proc.returncode:
         raise RuntimeError(f"building the OOD variants failed:\n{err}")
     print("\n".join(line for line in err.splitlines()
-                    if "ood_kernel" in line or "registers" in line),
-          flush=True)
+                    if "ood_kernel" in line or "registers" in line
+                    or "stack frame" in line), flush=True)
     lib = ctypes.CDLL(src + ".so")
 
-    def variant(v, cols, invs, pairs, gpow):
-        ext, P, T = v
-        words = kdeep.ood_groups(cols, invs, pairs, ext, P)
-        groups = len(words) // kdeep.ood_record_words(ext, P)
-        recs = torch.tensor(words, dtype=torch.int64).to(dev)
-        chunks = kdeep.ood_chunks(gpow.shape[0], groups)
-        slots = 3 if ext else 1
-        partial = torch.empty(chunks * slots * len(pairs), dtype=torch.int64,
-                              device=dev)
-        fn = getattr(lib, ood_variant_name(v))
-        fn.restype = ctypes.c_int
-
-        def run():
-            out = torch.empty(slots * len(pairs), dtype=torch.int64,
-                              device=dev)
-            rc = fn(build.ptr(recs), build.i64(groups), build.ptr(gpow),
-                    build.ptr(partial), build.ptr(out),
-                    build.i64(gpow.shape[0]), build.i64(chunks),
-                    build.i64(len(pairs)),
-                    ctypes.c_void_p(build.current_stream()))
-            assert rc == 0, rc
-            return out.reshape(3, -1) if ext else out
-        return run
-
-    for path in ("F", "B", "W"):
+    for path in ("F", "S", "B", "W"):
         if path not in paths:
             continue
         cols, invs, pairs, gpow, ext = _ood_inputs(path, rand, dev)
         fn = kdeep.ood_sums_ext3 if ext else kdeep.ood_sums
-        fns = {ood_variant_name(v): variant(v, cols, invs, pairs, gpow)
-               for v in OOD_VARIANTS if v[0] == ext}
+        fns = {ood_variant_name(v): _ood_runner(
+            lib, ood_variant_name(v), cols, invs, pairs, gpow, ext, v[2], dev,
+            P0=v[3])
+            for v in OOD_VARIANTS
+            if v[0] == ext and (ext or v[2] >= len(pairs))}
         fns["shipped"] = lambda: fn(cols, invs, pairs, gpow)
         record_variants("ood variants", path, fns, fn(cols, invs, pairs,
-                                                      gpow), n)
+                                                      gpow), gpow.shape[0])
         del cols, invs
         torch.cuda.empty_cache()
 
@@ -838,7 +982,14 @@ def ood_staged(paths, out_dir, rand, record_variants, dev):
         # the shipped kernel through its own launch (its groups made once,
         # as the staged ones are), so that both are timed without the
         # wrapper's host work
-        fns = {"shipped": _shipped_ood(cols, invs, pairs, gpow, ext, dev)}
+        kdeep.KERNEL_OOD.build()
+        from ministark_tpu_torch.ops.build import _LIBS
+
+        fns = {"shipped": _ood_runner(
+            _LIBS[kdeep.KERNEL_OOD._text(None)],
+            "ms_ood_sums_ext3" if ext else "ms_ood_sums", cols, invs, pairs,
+            gpow, ext, kdeep.ood_pairs_a_group(ext, len(pairs))[0], dev,
+            P0=kdeep.ood_pairs_a_group(ext, len(pairs))[1])}
         for P in OOD_STAGED[ext]:
             fns[f"staged_p{P}"] = staged(cols, invs, pairs, gpow, ext, P)
         record_variants("ood staged", path, fns, fn(cols, invs, pairs, gpow),
@@ -847,32 +998,137 @@ def ood_staged(paths, out_dir, rand, record_variants, dev):
         torch.cuda.empty_cache()
 
 
-def _shipped_ood(cols, invs, pairs, gpow, ext, dev):
-    """The shipped OOD kernel with its groups made once (ops/deep.py's
-    ``_ood`` without the per-call host work)."""
+# the proves' coin steps: path -> (RPO-256, k draws, N powers of alpha)
+COIN_STEPS = {"F": (False, 1, 8), "S": (False, 1, 8), "B": (False, 3, 16),
+              "W": (False, 3, 16), "R": (True, 1, 8), "H": (True, 3, 16)}
+
+
+def coin_ab(paths, out_dir, record, dev):
+    """The device coin steps against the ones they replaced
+    (scripts/coin_single.cu), in turns, at each prove's (k, N) (F, S:
+    SHA-256, k = 1, N = 8; B, W: SHA-256, k = 3, N = 16; R, H: RPO-256 at
+    F's and W's), a launch at a time; ptxas's registers and stack frames of
+    both sources printed.  Then the RPO-256 steps' parts by their clock64()
+    and %globaltimer stamps (scripts/coin_single.cu ab_rpo_parts_*), old
+    and new in turns, five warm launches each at R's and H's (k, N)."""
+    import hashlib
+
     import torch
 
+    from ministark_tpu_torch import hash_rpo
     from ministark_tpu_torch.ops import build
-    from ministark_tpu_torch.ops import deep as kdeep
+    from ministark_tpu_torch.ops import coin as kcoin
 
-    words = kdeep.ood_groups(cols, invs, pairs, ext)
-    ngroups = len(words) // kdeep.ood_record_words(ext)
-    recs = torch.tensor(words, dtype=torch.int64).to(dev)
-    n = gpow.shape[0]
-    chunks = kdeep.ood_chunks(n, ngroups)
-    slots = 3 if ext else 1
-    partial = torch.empty(chunks * slots * len(pairs), dtype=torch.int64,
-                          device=dev)
-    kernel = kdeep.KERNEL_OOD_EXT3 if ext else kdeep.KERNEL_OOD
-    name = "ms_ood_sums_ext3" if ext else "ms_ood_sums"
+    old = _build_fixture("coin_single", out_dir)
+    proc = _nvcc(os.path.join(build.CSRC, "coin.cu"),
+                 os.path.join(out_dir, "coin_new.so"), build.CSRC,
+                 "-Xptxas", "-v")
+    _, err = proc.communicate(timeout=600)
+    print("\n".join(line for line in err.splitlines()
+                    if "registers" in line or "Compiling entry" in line
+                    or "stack frame" in line), flush=True)
+    for kern in (kcoin.KERNEL_SHA, kcoin.KERNEL_RPO):
+        kern.build()
+    from ministark_tpu_torch.ops.build import _LIBS
 
-    def run():
-        out = torch.empty(slots * len(pairs), dtype=torch.int64, device=dev)
-        kernel.launch(name, build.ptr(recs), build.i64(ngroups),
-                      build.ptr(gpow), build.ptr(partial), build.ptr(out),
-                      build.i64(n), build.i64(chunks), build.i64(len(pairs)))
-        return out.reshape(3, -1) if ext else out
-    return run
+    new = _LIBS[kcoin.KERNEL_SHA._text(None)]
+
+    def runner(lib, name, seed, root, k, N):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+
+        def run():
+            out = torch.empty(32, dtype=torch.uint8, device=dev)
+            draws = torch.empty(k, dtype=torch.int64, device=dev)
+            pw = torch.empty((k, N), dtype=torch.int64, device=dev)
+            rc = fn(ctypes.c_void_p(seed.data_ptr()),
+                    ctypes.c_void_p(root.data_ptr()), ctypes.c_int64(k),
+                    ctypes.c_int64(N), ctypes.c_void_p(out.data_ptr()),
+                    ctypes.c_void_p(draws.data_ptr()),
+                    ctypes.c_void_p(pw.data_ptr()),
+                    ctypes.c_void_p(build.current_stream()))
+            assert rc == 0, rc
+            return torch.cat([out.view(torch.int64), draws, pw.reshape(-1)])
+        return run
+
+    def seeds(path, rpo):
+        tag = path.encode()
+        if rpo:
+            return (hash_rpo.hash_elements(list(hashlib.sha256(tag).digest()
+                                                [:8])),
+                    hash_rpo.hash_elements(list(tag)))
+        return (hashlib.sha256(tag).digest(),
+                hashlib.sha256(tag + b" root").digest())
+
+    for path, (rpo, k, N) in COIN_STEPS.items():
+        if path not in paths:
+            continue
+        seed, root = (kcoin.seed_tensor(d, dev) for d in seeds(path, rpo))
+        name = "coin_rpo" if rpo else "coin_sha"
+        record(name, path, [({"old": runner(old, "ab_old_" + name, seed, root,
+                                            k, N),
+                              "new": runner(new, "ms_" + name, seed, root, k,
+                                            N)}, 1)])
+    cycles = torch.zeros(6, dtype=torch.int64, device=dev)
+    vals = torch.zeros(6, dtype=torch.int64, device=dev)
+    lat = old.ab_mul_latency
+    lat.restype = ctypes.c_int
+    for _ in range(2):  # the first launch warms up
+        assert lat(ctypes.c_uint64(0x123456789ABCDEF), ctypes.c_void_p(
+            cycles.data_ptr()), ctypes.c_void_p(vals.data_ptr()),
+            ctypes.c_void_p(build.current_stream())) == 0
+        torch.cuda.synchronize()
+    forms = ("gl_mul_cc_lazy(x, x)", "gl_mul_cc_lazy(x, y)", "gl_mul(x, x)",
+             "gl_mul_wide_lazy(x, x)", "gl_sqr_wide_lazy(x)",
+             "gl_mul_wide_lazy(x, y)")
+    print("product latency, clock64() cycles a product in a chain of 4096: "
+          + ", ".join(f"{f} {c}" for f, c in zip(forms, cycles.tolist())),
+          flush=True)
+    parts = ("reseed", "digests", "powers")
+    for path in ("R", "H"):
+        if path not in paths:
+            continue
+        _rpo, k, N = COIN_STEPS[path]
+        seed, root = (kcoin.seed_tensor(d, dev) for d in seeds(path, True))
+        want = runner(new, "ms_coin_rpo", seed, root, k, N)()
+        stamps = torch.zeros(8, dtype=torch.int64, device=dev)
+        got: dict = {}
+        variants = ("old", "new", "cc", "rounds", "squarings")
+        for v in variants + variants[::-1]:
+            fn = getattr(old, f"ab_rpo_parts_{v}")
+            fn.restype = ctypes.c_int
+            for rep in range(6):  # the first launch warms up
+                out = torch.empty(32, dtype=torch.uint8, device=dev)
+                draws = torch.empty(k, dtype=torch.int64, device=dev)
+                pw = torch.empty((k, N), dtype=torch.int64, device=dev)
+                assert fn(ctypes.c_void_p(seed.data_ptr()),
+                          ctypes.c_void_p(root.data_ptr()),
+                          ctypes.c_int64(k), ctypes.c_int64(N),
+                          ctypes.c_void_p(out.data_ptr()),
+                          ctypes.c_void_p(draws.data_ptr()),
+                          ctypes.c_void_p(pw.data_ptr()),
+                          ctypes.c_void_p(stamps.data_ptr()),
+                          ctypes.c_void_p(build.current_stream())) == 0
+                res = torch.cat([out.view(torch.int64), draws,
+                                 pw.reshape(-1)])
+                if not torch.equal(res, want):
+                    raise SystemExit(f"ab_kernels: ab_rpo_parts_{v} differs "
+                                     f"from ms_coin_rpo on {path}")
+                if rep:
+                    t = stamps.tolist()
+                    for q, part in enumerate(parts):
+                        got.setdefault(v, {}).setdefault(part, []).append(
+                            (t[2 * q + 2] - t[2 * q],
+                             t[2 * q + 3] - t[2 * q + 1]))
+        for v in variants:
+            med = {part: (sorted(c for c, _ns in xs)[len(xs) // 2],
+                          sorted(ns for _c, ns in xs)[len(xs) // 2])
+                   for part, xs in got[v].items()}
+            print(f"coin_rpo parts ({path}, k = {k}, N = {N}) {v}, median "
+                  f"of {len(got[v]['reseed'])}: "
+                  + ", ".join(f"{part} {c} cycles {ns} ns"
+                              for part, (c, ns) in med.items()),
+                  flush=True)
 
 
 def rpo_sweep(old_merge, new_merge, old_hash, new_hash, old_grind, new_grind,
@@ -944,11 +1200,18 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=0,
                     help="launches per timing (default 20 below 2^20 points "
                          "a launch, else 5)")
-    ap.add_argument("--paths", default="F,B,W,L,R,H")
+    ap.add_argument("--paths", default="F,B,W,L,R,H,S,D")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="rounds of turns (old, new, new, old; variants in "
+                         "order and back)")
     ap.add_argument("--inv-variants", action="store_true")
     ap.add_argument("--rpo-sweep", action="store_true")
     ap.add_argument("--ood-variants", action="store_true")
     ap.add_argument("--ood-staged", action="store_true")
+    ap.add_argument("--ood", action="store_true",
+                    help="kernel F's OOD sums against scripts/ood_grouped.cu")
+    ap.add_argument("--coin", action="store_true",
+                    help="the coin steps against scripts/coin_single.cu")
     ap.add_argument("--old-tree", default=None,
                     help="a whole older tree (git archive): kernel E's old "
                          "generated sources come from its ops/eval.py")
@@ -1074,38 +1337,52 @@ def main() -> int:
 
     results = {}
 
+    def spread(xs):
+        return f"{sum(xs) / len(xs):.4f} [{min(xs):.4f}-{max(xs):.4f}]"
+
     def record(name, path, parts):
         """parts: ({"old": fn, "new": fn}, points) for each of the path's
         launches; each version's times add up over them.  Below 2^20
         points, where a launch costs the host more than the card, also the
-        device time alone (torch.profiler), in the same turns."""
+        device time alone (torch.profiler), in the same turns.  Each of
+        --turns rounds takes old, new, new, old; the mean of every visit is
+        printed with the range of the rounds' means."""
         import chip_smoke
 
-        totals = {}
+        turns = {"old": [0.0] * args.turns, "new": [0.0] * args.turns}
+        dturns = {"old": [0.0] * args.turns, "new": [0.0] * args.turns}
+        small = False
         for fns, points in parts:
             if not torch.equal(fns["old"](), fns["new"]()):
                 raise SystemExit(f"ab_kernels: {name} on {path}: old and "
                                  f"new differ")
             reps = args.reps or (20 if points < (1 << 20) else 5)
-            for v in ("old", "new", "new", "old"):
-                totals[v] = totals.get(v, 0.0) + events_ms(fns[v], reps) / 2
-                if points < 1 << 20:
-                    d = chip_smoke.device_only_ms(torch, fns[v], reps)
-                    key = f"{v}_device_only"
-                    totals[key] = (None if d is None or totals.get(key, 0.0)
-                                   is None else totals.get(key, 0.0) + d / 2)
+            small = small or points < 1 << 20
+            for t in range(args.turns):
+                for v in ("old", "new", "new", "old"):
+                    turns[v][t] += events_ms(fns[v], reps) / 2
+                    if points < 1 << 20:
+                        d = chip_smoke.device_only_ms(torch, fns[v], reps)
+                        dturns[v][t] += (d or float("nan")) / 2
+        totals = {v: sum(x) / args.turns for v, x in turns.items()}
+        totals.update({f"{v}_turns": x for v, x in turns.items()})
+        if small:
+            totals.update({f"{v}_device_only": sum(x) / args.turns
+                           for v, x in dturns.items()})
+            totals.update({f"{v}_device_only_turns": x
+                           for v, x in dturns.items()})
         results.setdefault(name, {})[path] = totals
         dev_only = ""
-        if "old_device_only" in totals:
-            dev_only = (f"; device only: old {totals['old_device_only']} ms, "
-                        f"new {totals['new_device_only']} ms")
-        print(f"{name} ({path}): old {totals['old']:.3f} ms, new "
-              f"{totals['new']:.3f} ms, {totals['old'] / totals['new']:.2f}x"
-              f"{dev_only}", flush=True)
+        if small:
+            dev_only = (f"; device only: old {spread(dturns['old'])} ms, "
+                        f"new {spread(dturns['new'])} ms")
+        print(f"{name} ({path}): old {spread(turns['old'])} ms, new "
+              f"{spread(turns['new'])} ms, "
+              f"{totals['old'] / totals['new']:.2f}x{dev_only}", flush=True)
 
     def record_variants(name, path, fns, want, points):
         """Every variant of `fns` ({name: fn}) equal to `want`, then timed
-        in turns: all in order, then all in reverse."""
+        in turns: all in order, then all in reverse, --turns rounds."""
         for v, fn in fns.items():
             if not torch.equal(fn(), want):
                 raise SystemExit(f"ab_kernels: {v} on {path} differs")
@@ -1113,19 +1390,19 @@ def main() -> int:
 
         reps = args.reps or (20 if points < (1 << 20) else 5)
         order = list(fns)
-        times = dict.fromkeys(order, 0.0)
-        dev_ms = dict.fromkeys(order, 0.0)
-        for v in order + order[::-1]:
-            times[v] += events_ms(fns[v], reps) / 2
-            if points < 1 << 20:
-                d = chip_smoke.device_only_ms(torch, fns[v], reps)
-                dev_ms[v] = (None if d is None or dev_ms[v] is None
-                             else dev_ms[v] + d / 2)
+        times = {v: [0.0] * args.turns for v in order}
+        dev_ms = {v: [0.0] * args.turns for v in order}
+        for t in range(args.turns):
+            for v in order + order[::-1]:
+                times[v][t] += events_ms(fns[v], reps) / 2
+                if points < 1 << 20:
+                    d = chip_smoke.device_only_ms(torch, fns[v], reps)
+                    dev_ms[v][t] += (d or float("nan")) / 2
         results.setdefault(name, {})[path] = times
-        for v in sorted(order, key=times.get):
-            extra = (f" (device only {dev_ms[v]} ms)" if points < 1 << 20
-                     else "")
-            print(f"{name} ({path}): {v} {times[v]:.3f} ms{extra}",
+        for v in sorted(order, key=lambda v: sum(times[v])):
+            extra = (f" (device only {spread(dev_ms[v])} ms)"
+                     if points < 1 << 20 else "")
+            print(f"{name} ({path}): {v} {spread(times[v])} ms{extra}",
                   flush=True)
 
     def inv_inputs(path):
@@ -1247,6 +1524,10 @@ def main() -> int:
     if "deep" in old or args.old_tree:
         ef_ab(paths, old, args.old_tree, rand, stream, record,
               record_variants, dev)
+    if args.ood:
+        ood_ab(paths, old_dir, rand, record, dev)
+    if args.coin:
+        coin_ab(paths, old_dir, record, dev)
     if args.ood_variants:
         ood_variants(paths, old_dir, rand, record_variants, dev)
     if args.ood_staged:

@@ -6,12 +6,14 @@ LDE, from one tree, for comparing two commits on one card.
     python3 scripts/ab_proves.py DIR parent [WORKLOAD ...]
     python3 scripts/ab_proves.py . change [WORKLOAD ...]
     python3 scripts/ab_proves.py --host-coin . host_coin [WORKLOAD ...]
+    python3 scripts/ab_proves.py --proves 6 . change fib
 
 Imports the port and chip_smoke.py from the tree at ROOT (its first
 argument) and proves each of the workloads (default: ``fib``, ``bf``,
 ``hello``, ``fib_rpo`` and ``hello_rpo``, ``chip_smoke.workload``) three
-times in a row, the first cold (the first prove of all builds the
-kernels); prints one JSON line of the seconds, host clock around each
+times in a row (``--proves``: that many), the first cold (the first
+prove of all builds the kernels); prints one JSON line of the seconds,
+each prove's device ms of every phase (``<workload>_phases``), host clock around each
 prove ending in a synchronise, each prove's "Proof of work" phase (host
 ms, under ``<workload>_pow_ms``), its "DEEP composition" phase (device ms
 by CUDA events, ``<workload>_deep_ms``), its "FRI" phase (device ms by
@@ -75,6 +77,11 @@ def main() -> int:
     host_coin = "--host-coin" in args
     if host_coin:
         args.remove("--host-coin")
+    proves = 3
+    if "--proves" in args:
+        at = args.index("--proves")
+        proves = int(args[at + 1])
+        del args[at:at + 2]
     root, tag = os.path.abspath(args[0]), args[1]
     import torch
 
@@ -107,8 +114,8 @@ def main() -> int:
             continue
         claim, trace, opts, _info = chip_smoke.workload(name)
         times, pow_ms, deep_ms, peak = [], [], [], []
-        fri_ms, fri_host_ms = [], []
-        for _ in range(3):
+        fri_ms, fri_host_ms, all_phases = [], [], []
+        for _ in range(proves):
             phases: list = []
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -124,12 +131,14 @@ def main() -> int:
             fri = [p for p in phases if p["phase"] == "FRI"]
             fri_ms += [p["device_ms"] for p in fri]
             fri_host_ms += [p["host_ms"] for p in fri]
+            all_phases.append({p["phase"]: p["device_ms"] for p in phases})
         out[name] = times
         out[f"{name}_pow_ms"] = pow_ms
         out[f"{name}_deep_ms"] = deep_ms
         out[f"{name}_fri_ms"] = fri_ms
         out[f"{name}_fri_host_ms"] = fri_host_ms
         out[f"{name}_peak_gib"] = peak
+        out[f"{name}_phases"] = all_phases
         out[f"{name}_phase_peak_gib"] = {p["phase"]: p["peak_gib"]
                                          for p in phases}
         del claim, trace

@@ -21,6 +21,26 @@
 #define STAGED_SHARED (192 * 1024)
 #define STAGED_GROUP(P) (2 + 3 * (P))
 
+// a column's value at i as V (an Fp column's or an Fq3 one's), and the
+// product of a weight with it
+__device__ __forceinline__ uint64_t ood_load(const uint64_t* p, int64_t i,
+                                             int64_t, uint64_t) {
+    return p[i];
+}
+__device__ __forceinline__ gl3 ood_load(const uint64_t* p, int64_t i,
+                                        int64_t n, gl3) {
+    return gl3_load(p, i, n);
+}
+template <class F>
+__device__ __forceinline__ typename F::T ood_mul(typename F::T w,
+                                                 uint64_t v) {
+    return F::mul_base(w, v);
+}
+template <class F>
+__device__ __forceinline__ typename F::T ood_mul(typename F::T w, gl3 v) {
+    return F::mul(w, v);
+}
+
 __device__ __forceinline__ uint64_t st_shfl_down(uint64_t v, int d) {
     return __shfl_down_sync(0xffffffffu, (unsigned long long)v, d);
 }

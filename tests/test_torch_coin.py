@@ -5,10 +5,14 @@ the SHA-256 step, the JAX package's device coin (``ops.coin.reseed`` and
 ``draw_fps``).  The RPO-256 step is held to the host coin only: the JAX
 package's ``rpo_draw_fps`` takes minutes to compile on the CPU.
 
-The host build runs the SHA-256 step on one thread, and the RPO-256 step
-both on one thread (the whole permutation) and as the kernel runs it: two
-groups of 16 lanes, each lane a std::thread, the shuffles emulated by
-barriers.  Equality is exact.
+The host build runs both steps as the kernels do, on a warp of 32 lanes,
+each lane a std::thread, the ballots and shuffles emulated by barriers:
+the SHA-256 step's digests 32 counters a round, its accepted draws placed
+by ballots (also on crafted candidates: rejections, a round boundary,
+alpha's components across rounds), the RPO-256 step on two groups of 16
+lanes (with gl_mul_cc's products and with the kernel's wide ones), and
+alpha's powers by the prefix product over the lanes (Fp and Fq3, past 32
+powers).  Equality is exact.
 """
 
 import ctypes
@@ -26,6 +30,7 @@ from ministark_tpu_torch.random import PublicCoin
 
 _HARNESS = r"""
 #include <condition_variable>
+#include <functional>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -63,47 +68,128 @@ struct HostEx {
     }
 };
 
+// the warp's collectives (coin.cuh's Warp): each lane's value in its
+// slot, between two barriers of the 32 lanes
+struct HostWarp {
+    Barrier* bar;
+    uint64_t* slots;
+    int lane;
+    uint64_t swap(uint64_t v, int from) {
+        slots[lane] = v;
+        bar->wait();
+        const uint64_t r = slots[from];
+        bar->wait();
+        return r;
+    }
+    uint32_t ballot(bool p) {
+        slots[lane] = p;
+        bar->wait();
+        uint32_t m = 0;
+        for (int l = 0; l < COIN_LANES; l++)
+            if (slots[l]) m |= 1u << l;
+        bar->wait();
+        return m;
+    }
+    uint64_t shfl(uint64_t v, int from) { return swap(v, from); }
+    uint64_t shfl_up(uint64_t v, int d) {
+        return swap(v, lane >= d ? lane - d : lane);
+    }
+};
+
+// fn(lane, warp) on 32 lanes, each a std::thread
+static void on_warp(const std::function<void(int, HostWarp&)>& fn) {
+    Barrier bar(COIN_LANES);
+    std::vector<uint64_t> slots(COIN_LANES);
+    std::vector<std::thread> lanes;
+    for (int l = 0; l < COIN_LANES; l++)
+        lanes.emplace_back([&, l] {
+            HostWarp w{&bar, slots.data(), l};
+            fn(l, w);
+        });
+    for (auto& th : lanes) th.join();
+}
+
 extern "C" void h_coin_sha(const uint8_t* seed, const uint8_t* root, long k,
                            long N, uint8_t* seed_out, uint64_t* draws,
                            uint64_t* pw) {
-    coin_sha_step(seed, root, k, N, seed_out, draws, pw);
+    on_warp([&](int l, HostWarp& w) {
+        coin_sha_warp(seed, root, k, N, l, w, seed_out, draws, pw);
+    });
 }
 
+// The draws of rounds of given candidates: cands[(r * 32 + lane) * 4 + i]
+// is the popped u64 i of lane's digest in round r; rounds run until k are
+// accepted (or `rounds` run out).  alpha gets the components of places
+// below ka.  Returns the u64s accepted.
+extern "C" long h_coin_sha_select(const uint64_t* cands, long rounds, long k,
+                                  long ka, uint64_t* draws, uint64_t* alpha) {
+    long out = 0;
+    on_warp([&](int l, HostWarp& w) {
+        gl3 a = gl3_from_base(0);
+        int64_t got = 0;
+        for (long r = 0; r < rounds && got < k; r++)
+            got = coin_sha_select(cands + (r * COIN_LANES + l) * 4, l, got, k,
+                                  ka, w, draws, a);
+        if (l == 0) {
+            out = got;
+            alpha[0] = a.c0;
+            alpha[1] = a.c1;
+            alpha[2] = a.c2;
+        }
+    });
+    return out;
+}
+
+// one digest's draws (words d) as lane 0's candidates, every other lane's
+// rejected: the draws in pop order
 extern "C" long h_coin_sha_take(const uint32_t* d, long k, uint64_t* draws) {
-    int64_t got = 0;
-    coin_sha_take(d, k, got, draws);
-    return got;
+    std::vector<uint64_t> cands(COIN_LANES * 4, ~0ULL);
+    for (int i = 0; i < 4; i++) cands[i] = coin_sha_popped(d, i);
+    uint64_t alpha[3];
+    const long got = h_coin_sha_select(cands.data(), 1, k, 0, draws, alpha);
+    return got < k ? got : k;
+}
+
+extern "C" void h_alpha_powers(const uint64_t* a, long k, long N,
+                               uint64_t* pw) {
+    on_warp([&](int l, HostWarp& w) {
+        coin_alpha_powers_warp(gl3_make(a[0], k == 3 ? a[1] : 0,
+                                        k == 3 ? a[2] : 0),
+                               k, N, l, w, pw);
+    });
+}
+
+// The RPO-256 step as the kernel runs it: two groups of 16 lanes (one
+// element a lane) on one warp of 32 threads, the products gl_mul_cc_fn's
+// (gl_mul on the host) or gl_mul_wide_fn's (the kernel's, its own code on
+// the host too)
+template <class Mul>
+static void rpo_warp(const uint8_t* seed, const uint8_t* root, long k, long N,
+                     uint8_t* seed_out, uint64_t* draws, uint64_t* pw) {
+    const int G = rpo_group_lanes<1>();
+    const uint64_t* rc = &rpo_rc_host[0][0][0];
+    Barrier gb0(G), gb1(G);
+    Barrier* gbars[2] = {&gb0, &gb1};
+    std::vector<std::vector<uint64_t>> gslots(2, std::vector<uint64_t>(G));
+    on_warp([&](int l, HostWarp& w) {
+        const int g = l / G;
+        const RpoLane<1> ln(l % G, rc);
+        const HostEx ex{gbars[g], gslots[g].data(), l % G};
+        coin_rpo_warp(seed, root, k, N, l, CoinRpoPerm<HostEx, Mul>{ln, ex},
+                      w, seed_out, draws, pw);
+    });
 }
 
 extern "C" void h_coin_rpo(const uint8_t* seed, const uint8_t* root, long k,
                            long N, uint8_t* seed_out, uint64_t* draws,
                            uint64_t* pw) {
-    coin_rpo_step(seed, root, k, N, 0, 1, true, seed_out, draws, pw,
-                  CoinRpoPerm());
+    rpo_warp<gl_mul_cc_fn>(seed, root, k, N, seed_out, draws, pw);
 }
 
-// the kernel's schedule: two groups of 16 lanes (one element a lane)
 extern "C" void h_coin_rpo_lanes(const uint8_t* seed, const uint8_t* root,
                                  long k, long N, uint8_t* seed_out,
                                  uint64_t* draws, uint64_t* pw) {
-    const int G = rpo_group_lanes<1>(), groups = 2;
-    const uint64_t* rc = &rpo_rc_host[0][0][0];
-    std::vector<Barrier*> bars;
-    std::vector<std::vector<uint64_t>> slots(groups,
-                                             std::vector<uint64_t>(G));
-    for (int g = 0; g < groups; g++) bars.push_back(new Barrier(G));
-    std::vector<std::thread> lanes;
-    for (int t = 0; t < groups * G; t++)
-        lanes.emplace_back([&, t] {
-            const int g = t / G, l = t % G;
-            const RpoLane<1> ln(l, rc);
-            const CoinRpoGroupPerm<HostEx, gl_mul_cc_fn> perm{
-                ln, HostEx{bars[g], slots[g].data(), l}, gl_mul_cc_fn()};
-            coin_rpo_step(seed, root, k, N, g, groups, l == 0, seed_out,
-                          draws, pw, perm);
-        });
-    for (auto& th : lanes) th.join();
-    for (auto* b : bars) delete b;
+    rpo_warp<gl_mul_wide_fn>(seed, root, k, N, seed_out, draws, pw);
 }
 
 // merge_with_int(seed, counter)'s digest elements
@@ -140,6 +226,9 @@ def lib():
                                        lg, c, c, c]
     lib.h_coin_sha_take.argtypes = [c, lg, c]
     lib.h_coin_sha_take.restype = ctypes.c_long
+    lib.h_coin_sha_select.argtypes = [c, lg, lg, lg, c, c]
+    lib.h_coin_sha_select.restype = ctypes.c_long
+    lib.h_alpha_powers.argtypes = [c, lg, lg, c]
     lib.h_rpo_draw_digest.argtypes = [c, u64, c]
     return lib
 
@@ -229,8 +318,9 @@ def test_sha_step_takes_an_rpo_root_as_bytes(lib):
 @pytest.mark.parametrize("k", range(1, 9))
 def test_rpo_step_matches_host_coin(lib, k):
     """k = 1-8 (two digests from k = 5), one seed and root a k: the plain
-    version, the host build on one thread and as the kernel's two groups
-    of lanes, against the port's and the JAX package's host coin."""
+    version and the host build as the kernel's two groups of lanes (the
+    carry-chain products, and the kernel's wide products), against the
+    port's and the JAX package's host coin."""
     from ministark_tpu import hash_rpo as jrpo
 
     seed, root = RPO_SEEDS[k % 5], RPO_ROOTS[(k + 2) % 5]
@@ -273,7 +363,9 @@ def _digest_words(candidates):
 ])
 def test_rejection_predicate_boundaries(lib, cands):
     """A digest whose popped u64s sit at the boundaries: u < p accepted,
-    u >= p skipped, in the plain version and the host build alike."""
+    u >= p skipped, in the plain version and the host build's lane
+    selection alike (the digest in lane 0, every other lane's u64s
+    rejected)."""
     want = [u * pow(2 ** 64 % P, P - 2, P) % P for u in cands if u < P]
     d = torch.tensor([_digest_words(cands)], dtype=torch.int64)
     u = kcoin.sha_candidates(d)
@@ -321,3 +413,67 @@ def test_fq3_alpha_is_three_draws():
     a = coin.draw()
     _, draws = plain_step(kcoin.coin_sha_plain, SEEDS[3], ROOTS[3], 3)
     assert draws == [a.c0.v, a.c1.v, a.c2.v]
+
+
+def _select_rounds(cands, k):
+    """The host coin's loop over given candidates (rounds x 32 lanes x 4
+    popped u64s, counter order): the first k accepted, as draws."""
+    r_inv = pow(2 ** 64 % P, P - 2, P)
+    out = [u * r_inv % P for u in np.asarray(cands).reshape(-1).tolist()
+           if u < P]
+    return out[:k], len(out)
+
+
+@pytest.mark.parametrize("case", ["one_lane_late", "round_boundary",
+                                  "alpha_across_rounds", "all_accepted"])
+def test_sha_lane_selection_matches_the_host_loop(lib, case):
+    """The warp's ballot places on crafted candidates equal the host coin's
+    loop, which takes the popped u64s of counters 1, 2, .. in order and
+    skips those >= p: a round whose only accepted u64s sit in its last
+    lanes, k past a round's 128 candidates, alpha's three components
+    split over two rounds, and every u64 accepted."""
+    rng = np.random.default_rng(5)
+    rounds = 3
+    cands = rng.integers(0, P, size=(rounds, 32, 4), dtype=np.uint64)
+    reject = np.uint64((1 << 64) - 1)
+    if case == "one_lane_late":
+        cands[0, :30] = reject
+        cands[0, 31, 1:3] = np.uint64(P)
+        k, ka = 5, 3
+    elif case == "round_boundary":
+        cands[0, ::3, 2] = reject
+        cands[1, 5:9] = np.uint64(P + 7)
+        k, ka = 200, 1
+    elif case == "alpha_across_rounds":
+        cands[0] = reject
+        cands[0, 17, 3] = np.uint64(P - 1)
+        cands[0, 30, 0] = np.uint64(0)
+        k, ka = 3, 3
+    else:
+        k, ka = 128, 3
+    want, accepted = _select_rounds(cands, k)
+    draws = np.zeros(k, dtype=np.uint64)
+    alpha = np.zeros(3, dtype=np.uint64)
+    got = lib.h_coin_sha_select(np.ascontiguousarray(cands).ctypes.data,
+                                rounds, k, ka, draws.ctypes.data,
+                                alpha.ctypes.data)
+    # whole rounds until k are accepted
+    took = next(r + 1 for r in range(rounds)
+                if _select_rounds(cands[:r + 1], k)[1] >= k)
+    assert got == _select_rounds(cands[:took], k)[1] and got >= k
+    assert [int(v) for v in draws] == want
+    assert [int(v) for v in alpha[:ka]] == want[:ka]
+
+
+@pytest.mark.parametrize("k, N", [(1, 1), (1, 33), (3, 16), (3, 70)])
+def test_alpha_powers_by_prefix_product(lib, k, N):
+    """Lane j's alpha^j by the prefix product over the lanes, then alpha^32
+    a round: an Fp and an Fq3 alpha against host scalars, within one round
+    and past it."""
+    draws = [int(v) for v in np.random.default_rng(k * 100 + N).integers(
+        0, P, size=k, dtype=np.uint64)]
+    pw = np.zeros((k, N), dtype=np.uint64)
+    lib.h_alpha_powers(np.array(draws + [0] * (3 - k),
+                                dtype=np.uint64).ctypes.data, k, N,
+                       pw.ctypes.data)
+    assert [[int(v) for v in row] for row in pw] == host_powers(draws, N)

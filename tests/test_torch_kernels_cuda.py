@@ -442,21 +442,31 @@ def test_kernel_matches_plain_on_card(dev, kernel):
         ext = kernel == "ood_sums_ext3"
         fn = kdeep.ood_sums_ext3 if ext else kdeep.ood_sums
         plain = kdeep.ood_sums_ext3_plain if ext else kdeep.ood_sums_plain
+        from ministark_tpu_torch.fields import device as fd
+
         # one point, points no chunk divides, several chunks; a column
         # read by six points (more than a group holds); every pair in its
-        # own column and groups of the widest
+        # own column and groups of the widest.  The kernel reads gpow[0]
+        # and gpow[1] of the row f g^i: f = 1 (the whole domain) on the odd
+        # sizes, f = 5 (a rank's share) on the even ones
         for n, ncols, npts in ((1, 3, 2), (777, 12, 6), (1 << 16, 40, 3),
                                (5000, 70, 4)):
             cols = [_rand((3, n), 50 + c) if ext and c % 2 else
                     _rand(n, 50 + c) for c in range(ncols)]
             invs = _rand((npts, 3, n) if ext else (npts, n), 49)
-            gpow = _rand(n, 48)
+            gpow = fd.mul(fd.powers(7, n, "cpu"), 1 if n % 2 else 5)
             pairs = [(j, 0) for j in range(npts)]
             pairs += [((c * 7) % npts, c) for c in range(1, ncols)]
             pairs += [((c + 1) % npts, c) for c in range(1, ncols, 3)]
             _same(torch, fn([c.to(dev) for c in cols], invs.to(dev), pairs,
                             gpow.to(dev)),
                   plain(cols, invs, pairs, gpow))
+        # the kernel makes every power from the first two: a row that is
+        # not geometric raises
+        bad = gpow.clone()
+        bad[-1] = 3
+        with pytest.raises(ValueError, match="geometric"):
+            fn([c.to(dev) for c in cols], invs.to(dev), pairs, bad.to(dev))
     elif kernel in ("coin_sha", "coin_rpo"):
         import hashlib
 
@@ -609,6 +619,61 @@ def test_block_entry_matches_plain_on_card(dev, which):
                                             *[a.to(dev) for a in args],
                                             launch=launch), want)
     assert kernel.launches > before
+
+
+_OOD_MAC = r"""
+#include "deep.cuh"
+#include "launch.cuh"
+
+// one thread: `count` products x y into one accumulator (the kernel's
+// PTX carry chain), its five words and its reduction
+__global__ void ood_mac_run(uint64_t x, uint64_t y, int64_t count,
+                            uint32_t* words, uint64_t* red) {
+    ood_acc a;
+    ood_acc_zero(a);
+    for (int64_t k = 0; k < count; k++) ood_mac(a, x, y);
+    for (int w = 0; w < 5; w++) words[w] = a.r[w];
+    red[0] = ood_acc_reduce(a);
+}
+
+MS_API int t_ood_mac(uint64_t x, uint64_t y, int64_t count, uint32_t* words,
+                     uint64_t* red, cudaStream_t stream) {
+    ood_mac_run<<<1, 1, 0, stream>>>(x, y, count, words, red);
+    return ms_last_error();
+}
+
+MS_API int64_t t_ood_max_run() { return OOD_MAX_RUN; }
+"""
+
+
+@pytest.mark.parametrize("x, y", [(P - 1, P - 1),
+                                  ((1 << 64) - 1, (1 << 64) - 1),
+                                  ((1 << 64) - 1, P - 1)])
+def test_ood_accumulator_longest_run_on_card(dev, x, y):
+    """The card's ood_mac (the PTX carry chain, not the host's __int128)
+    over a thread's longest run, 3 x OOD_MAX_RUN products of the largest
+    words: its 160-bit sum word for word, and reduced mod p, exact."""
+    import ctypes
+
+    import torch
+
+    from ministark_tpu_torch.ops import build
+
+    k = build.CudaKernel("ood_mac_check", None, replaces="")
+    k.build(_OOD_MAC)
+    lib = build._LIBS[_OOD_MAC]
+    lib.t_ood_max_run.restype = ctypes.c_int64
+    count = 3 * lib.t_ood_max_run()
+    words = torch.zeros(5, dtype=torch.int32, device=dev)
+    red = torch.zeros(1, dtype=torch.int64, device=dev)
+    k.launch("t_ood_mac", ctypes.c_uint64(x), ctypes.c_uint64(y),
+             build.i64(count), build.ptr(words), build.ptr(red),
+             source_text=_OOD_MAC)
+    torch.cuda.synchronize()
+    got = sum((w % (1 << 32)) << (32 * i)
+              for i, w in enumerate(words.cpu().tolist()))
+    assert got == x * y * count
+    assert red.item() % (1 << 64) == x * y * count % P
 
 
 def _build_fib_path():
