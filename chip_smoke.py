@@ -48,8 +48,12 @@ Phases, any failure exits non-zero:
      5 draws for SHA-256, 1-8 for RPO-256, the root read in place from a
      level of digests; an RPO draw digest at a counter past 2^32 against
      the host's; timed a launch at the prove's k and N, 50 launches, with
-     the device time alone and the host time a call); and BIG's big_ntt (Fp128 and Fp252, forward and
-     inverse, plain and coset) and big_mul at 2^18 points;
+     the device time alone and the host time a call); and BIG's big_ntt
+     (Fp128 and Fp252, forward and inverse, plain and coset) and big_mul
+     at 2^18 points, 20 launches a part with the device time alone and
+     the host time a call, big_ntt also compared (untimed) at 2, 32, 2^11
+     and 2^15 points and big_mul over two other odd moduli (the generic
+     product);
      integer field math, so the tolerance is exact equality;
      print the kernel's time, the plain version's, the bound (the least time the
      card could take) and, where one PyTorch call computes the same
@@ -124,6 +128,7 @@ byte flipped.  It imports nothing of JAX and nothing of ``ministark_tpu``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -231,6 +236,18 @@ OPS_RPO = 7 * (12 * 76 * OPS_MUL + 2 * OPS_MDS + 24 * OPS_ADD)
 # borrow, W selects).
 def ops_big_mul(w: int) -> int:
     return 2 * (2 * w * w + w) + 2 * w
+
+
+# The same product at its least work where p = 1 + (top words) is 1 mod
+# 2^(32 (w - top)) with those words in its upper half (Fp128: one top word,
+# Fp252: two; csrc/bigfield.cuh big_redc_sparse): a b's w^2 word products,
+# one row of w products a top word for m p, m = -t_lo (w subtractions with
+# borrow), t_hi + V (w adds with carry) and the conditional subtraction.
+BIG_TOP_WORDS = {"Fp128": 1, "Fp252": 2}
+
+
+def ops_big_mul_sparse(w: int, top: int) -> int:
+    return 2 * w * w + 2 * w * top + w + w + 2 * w
 
 
 def ops_big_add(w: int) -> int:
@@ -1204,43 +1221,109 @@ def big_values(field, n, seed):
             for i in range(0, nb * n, nb)]
 
 
+# the sizes big_ntt is also compared at, untimed: one pass of 2 and 32
+# points, two passes of 2^11 and 2^15
+BIG_EXTRA_LOG_N = (1, 5, 11, 15)
+
+
+def big_ntt_ops(n: int, mul_ops: int, w: int, scaled: bool) -> int:
+    """(n/2) log2 n butterflies, each a sum and a difference, and a product
+    in all but the n - 1 whose twiddle is w^0 = 1; a product a point where
+    a scale table is folded in."""
+    log_n = n.bit_length() - 1
+    bflies = n // 2 * log_n
+    return (bflies * 2 * ops_big_add(w) + (bflies - (n - 1)) * mul_ops
+            + (n * mul_ops if scaled else 0))
+
+
+def l2_copies(torch, nbytes: int) -> int:
+    """How many copies of a working set of `nbytes` take four times the
+    card's L2 cache: a timing that reads them in turn reads device memory,
+    not the cache that back-to-back calls on the same inputs would hit
+    (twice the L2 still left part of them there)."""
+    props = torch.cuda.get_device_properties(0)
+    l2 = getattr(props, "L2_cache_size", 50 << 20)
+    return max(2, -(-4 * l2 // nbytes))
+
+
 def compare_big_kernels(ck: Checker):
     """The BIG path's kernels at 2^18 points (2^18 pairs), Fp128 and
     Fp252: big_ntt forward and inverse, plain and coset (offset the
-    field's generator), and big_mul, against their plain versions."""
-    from ministark_tpu_torch.fields.bigvec import BigDomain, Fp128Vec, Fp252Vec
+    field's generator), and big_mul, against their plain versions, timed
+    with their device time alone and host time a call (launch_cost); also
+    compared, untimed: big_ntt at 2, 32, 2^11 and 2^15 points the same
+    eight ways, and big_mul over two other odd moduli (the generic
+    product, M127 = 2^127 - 1 and 2^255 - 19).  big_mul is timed over
+    copies of its inputs read in turn (l2_copies), so that its inputs come
+    from device memory as its bytes bound assumes; big_ntt's inputs (8 MB
+    at most, a small share of its time) stay in L2.  The bound counts the
+    sparse product (ops_big_mul_sparse); the CIOS model's bound is printed
+    beside it."""
+    from ministark_tpu_torch.fields.bigvec import (BigDomain, BigField,
+                                                   Fp128Vec, Fp252Vec)
     from ministark_tpu_torch.ops import bigfield as kbig
 
     n = 1 << BIG_LOG_N
-    ntt_parts, mul_parts = [], []
-    ntt_bytes = ntt_ops = mul_bytes = mul_ops = 0
+    ntt_parts, mul_parts, extra_ntt = [], [], []
+    ntt_bytes = mul_bytes = 0
+    ntt_ops = mul_ops = ntt_ops_cios = mul_ops_cios = 0
+
+    def ntt_part(f, m, offset, inverse, x=None):
+        def make():
+            xs = x if x is not None else f.pack(big_values(f, m, m), ck.dev)
+            dom = BigDomain(f, m, offset)
+            tw, first, last = dom._tables(inverse, str(ck.dev))
+            table = dom._kernel_table(inverse, str(ck.dev))
+            return (lambda: kbig.big_ntt(xs, tw, f, first, last, table),
+                    lambda: kbig.big_ntt_plain(xs, tw, f, first, last), None)
+        return make
+
+    def mul_part(g, a=None, b=None, rotate=False):
+        def make():
+            xa = a if a is not None else g.pack(big_values(g, n, 3), ck.dev)
+            xb = b if b is not None else g.pack(big_values(g, n, 4), ck.dev)
+            sets = [(xa, xb)]  # the first call (compared) takes these
+            if rotate:
+                sets += [(xa.clone(), xb.clone()) for _ in range(
+                    l2_copies(ck.torch, 3 * xa.nbytes) - 1)]
+            it = itertools.cycle(sets)
+            return (lambda: kbig.big_mul(*next(it), g),
+                    lambda: kbig.big_mul_plain(xa, xb, g), None)
+        return make
+
     for f in (Fp128Vec, Fp252Vec):
-        w = 2 * f.L64
+        w, top = 2 * f.L64, BIG_TOP_WORDS[f.name]
         x = f.pack(big_values(f, n, f.L64), ck.dev)
         y = f.pack(big_values(f, n, f.L64 + 1), ck.dev)
         for offset in (1, f.generator):
-            dom = BigDomain(f, n, offset)
             for inverse in (False, True):
-                tw, first, last = dom._tables(inverse, str(ck.dev))
-                ntt_parts.append(
-                    lambda x=x, tw=tw, first=first, last=last, f=f: (
-                        lambda: kbig.big_ntt(x, tw, f, first, last),
-                        lambda: kbig.big_ntt_plain(x, tw, f, first, last),
-                        None))
-                scaled = first is not None or last is not None
+                ntt_parts.append(ntt_part(f, n, offset, inverse, x))
+                scaled = offset != 1 or inverse
                 ntt_bytes += 2 * 8 * f.L64 * n
-                ntt_ops += (n // 2 * BIG_LOG_N * (ops_big_mul(w)
-                                                 + 2 * ops_big_add(w))
-                            + (n * ops_big_mul(w) if scaled else 0))
-        mul_parts.append(lambda x=x, y=y, f=f: (
-            lambda: kbig.big_mul(x, y, f), lambda: kbig.big_mul_plain(x, y, f),
-            None))
+                ntt_ops += big_ntt_ops(n, ops_big_mul_sparse(w, top), w,
+                                       scaled)
+                ntt_ops_cios += big_ntt_ops(n, ops_big_mul(w), w, scaled)
+                extra_ntt += [ntt_part(f, 1 << k, offset, inverse)
+                              for k in BIG_EXTRA_LOG_N]
+        mul_parts.append(mul_part(f, x, y, rotate=True))
         mul_bytes += 3 * 8 * f.L64 * n
-        mul_ops += n * ops_big_mul(w)
-    ck.check("big_ntt", BIG, ntt_parts, ntt_bytes, ntt_ops, reps=5,
-             plain_reps=1)
-    ck.check("big_mul", BIG, mul_parts, mul_bytes, mul_ops, reps=5,
-             plain_reps=1)
+        mul_ops += n * ops_big_mul_sparse(w, top)
+        mul_ops_cios += n * ops_big_mul(w)
+    extra_mul = [mul_part(BigField("M127", 2**127 - 1, 3, 1)),
+                 mul_part(BigField("P255m19", 2**255 - 19, 2, 2))]
+    for name, ops, ops_cios, nbytes in (
+            ("big_ntt", ntt_ops, ntt_ops_cios, ntt_bytes),
+            ("big_mul", mul_ops, mul_ops_cios, mul_bytes)):
+        print(f"kernel {name} ({BIG}) bound: {bound(nbytes, ops)[0]:.4f} ms "
+              f"({bound(nbytes, ops)[1]}; the sparse product), "
+              f"{bound(nbytes, ops_cios)[0]:.4f} ms ({bound(nbytes, ops_cios)[1]}"
+              "; the CIOS model before it)", flush=True)
+    ck.check("big_ntt", BIG, ntt_parts + extra_ntt, ntt_bytes, ntt_ops,
+             reps=20, plain_reps=1, launch_cost=True,
+             timed=set(range(len(ntt_parts))))
+    ck.check("big_mul", BIG, mul_parts + extra_mul, mul_bytes, mul_ops,
+             reps=20, plain_reps=1, launch_cost=True,
+             timed=set(range(len(mul_parts))))
 
 
 def big_path(torch, build, ck):
@@ -1260,6 +1343,7 @@ def big_path(torch, build, ck):
     for (name, off), dom in doms.items():  # tables built before the run
         for inverse in (False, True):
             dom._tables(inverse, str(ck.dev))
+            dom._kernel_table(inverse, str(ck.dev))
     inputs = {f.name: (f.pack(big_values(f, n, 7), ck.dev),
                        f.pack(big_values(f, 64, 8), ck.dev),
                        f.pack(big_values(f, n, 9), ck.dev))

@@ -132,18 +132,13 @@ static int col_ntt_launch(const uint64_t* x, uint64_t* y, const uint64_t* tw,
         : ((NTT_TILE_ELEMS >> L) * T > MAX_THREADS ? MAX_THREADS / T
                                                   : NTT_TILE_ELEMS >> L);
     constexpr bool EXCHANGE = ntt_rounds(L) > 1;
-    // set once per instantiation: the most shared memory it asks for
-    static bool configured = false;
-    if (!configured) {
-        const size_t most = ((EXCHANGE ? (size_t)N * TC_MAX : 0) + N / 2) * 8;
-        if (most > 48 * 1024) {
-            cudaError_t e = cudaFuncSetAttribute(
-                col_ntt_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                (int)most);
-            if (e != cudaSuccess) return (int)e;
-        }
-        configured = true;
-    }
+    // set once per instantiation and device: the most shared memory it
+    // asks for
+    static bool configured[MS_MAX_DEVICES];
+    const int e = ms_smem_limit(
+        col_ntt_kernel<L>,
+        ((EXCHANGE ? (size_t)N * TC_MAX : 0) + N / 2) * 8, configured);
+    if (e) return e;
     int log_tc = 0;  // columns a block: the largest power of two dividing C
     while ((1 << (log_tc + 1)) <= TC_MAX && C % (2LL << log_tc) == 0) log_tc++;
     // ... but narrower while the grid has fewer than two blocks per SM

@@ -162,9 +162,10 @@ class BigDomain:
     """Radix-2 (coset) evaluation domain over a BigField: the counterpart
     of the reference's generic-field GPU FFT.  Values in and out are
     (L64, n) Montgomery limb tensors in natural order; the transform runs
-    through ``ops.bigfield.big_ntt`` (one kernel, or its plain version on
-    the CPU).  Tables are built on the host with exact bigint math and
-    cached per device."""
+    through ``ops.bigfield.big_ntt`` (a launch a pass of up to 2^9 points,
+    or its plain version on the CPU).  Tables are built on the host with
+    exact bigint math and cached per device, the kernel's twiddle table
+    beside them on the card."""
 
     def __init__(self, field: BigField, size: int, offset: int = 1):
         assert size & (size - 1) == 0, "size must be a power of two"
@@ -204,11 +205,20 @@ class BigDomain:
                  else f.pack(self._powers(self.offset, n), device))
         return tw, first, None
 
+    @functools.lru_cache(maxsize=None)
+    def _kernel_table(self, inverse: bool, device: str):
+        """The kernel's twiddle table and pass count on `device` (a card),
+        from the twiddles of ``_tables``."""
+        tw = self._tables(inverse, device)[0]
+        return kbig.twiddle_table(tw, self.field, self.size)
+
     def _transform(self, x, inverse: bool):
         f, n = self.field, self.size
         assert tuple(x.shape) == (f.L64, n)
-        tw, first, last = self._tables(inverse, str(x.device))
-        return kbig.big_ntt(x, tw, f, first, last)
+        dev = str(x.device)
+        tw, first, last = self._tables(inverse, dev)
+        table = self._kernel_table(inverse, dev) if x.is_cuda else None
+        return kbig.big_ntt(x, tw, f, first, last, table)
 
     def fft(self, coeffs):
         return self._transform(coeffs, inverse=False)

@@ -10,12 +10,19 @@ words in uint32): a product of two words plus two word addends is below
 2^64, so its bit pattern in wrapping int64 arithmetic is exact; right
 shifts are masked (``>>`` is arithmetic).  R is the same 2^(32 * 2L).
 CUDA tensors launch the kernel; CPU tensors take the plain version.
+
+The kernel's transform reads its twiddles from one table in the order its
+threads read them (``twiddle_table``): the entries w^e whose exponents
+``ms_big_ntt_table`` lists, taken from tw (w^(e + n/2) = -w^e).
+``fields.bigvec.BigDomain`` builds it once per domain and device beside
+tw and passes it to ``big_ntt``.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import build
@@ -29,8 +36,8 @@ KERNEL_MUL = build.register(
 KERNEL_NTT = build.register(
     "big_ntt", "bigfield.cu",
     replaces="ministark_tpu/fields/bigvec.py:283 BigDomain._transform (XLA)",
-    prototypes={"ms_big_ntt": (_P, _P, _P, _P, _P, _I, ctypes.c_char_p,
-                               _I)})
+    prototypes={"ms_big_ntt": (_P, _P, _P, _P, _I, _P, _P, _I,
+                               ctypes.c_char_p, _I)})
 
 _M = 0xFFFFFFFF
 
@@ -168,15 +175,40 @@ def big_ntt_plain(x: torch.Tensor, tw: torch.Tensor, field,
     return x
 
 
+def twiddle_values(tw: torch.Tensor, field, n: int,
+                   exps: torch.Tensor) -> torch.Tensor:
+    """(L, len(exps)) limbs of w^e for each exponent e < n, from tw (L,
+    n/2) = w^j: w^e = -w^(e - n/2) for e >= n/2."""
+    half = max(n // 2, 1)
+    e = exps.to(tw.device)
+    vals = tw[:, e % half]
+    neg = sub_plain(torch.zeros_like(vals), vals, field)
+    return torch.where(e >= half, neg, vals).contiguous()
+
+
+def twiddle_table(tw: torch.Tensor, field, n: int):
+    """The kernel's twiddle table for an n-point transform with twiddles
+    tw, on tw's device, and the transform's number of passes."""
+    log_n = n.bit_length() - 1
+    count = KERNEL_NTT.query("ms_big_ntt_table", log_n, 0)
+    exps = np.zeros(max(count, 1), dtype=np.int64)
+    KERNEL_NTT.query("ms_big_ntt_table", log_n, exps.ctypes.data)
+    return (twiddle_values(tw, field, n, torch.from_numpy(exps[:count])),
+            KERNEL_NTT.query("ms_big_ntt_passes", log_n))
+
+
 def big_ntt(x: torch.Tensor, tw: torch.Tensor, field,
             scale_first: torch.Tensor | None = None,
-            scale_last: torch.Tensor | None = None) -> torch.Tensor:
-    """The radix-2 transform of an (L, n) limb array (n a power of two,
-    natural order in and out), twiddles tw (L, n/2) = w^j, the coset's
+            scale_last: torch.Tensor | None = None,
+            table=None) -> torch.Tensor:
+    """The transform of an (L, n) limb array, y[k] = sum_i x[i] w^(i k) (n
+    a power of two, natural order in and out; ``big_ntt_plain``'s radix-2
+    stages), twiddles tw (L, n/2) = w^j, the coset's
     powers folded into the first pass (scale_first) and the inverse's
-    offset^-i n^-1 into the last (scale_last).  On the card one launch for
-    the bit-reversal and the stages within a tile, then one a stage; the
-    plain version for CPU tensors."""
+    offset^-i n^-1 into the last (scale_last).  On the card one launch a
+    pass of up to 2^9 points (2^18 points: two), its twiddles from
+    `table` (``twiddle_table(tw, field, n)``, built here where not
+    given); the plain version for CPU tensors."""
     if not x.is_cuda:
         return big_ntt_plain(x, tw, field, scale_first, scale_last)
     L, n = x.shape
@@ -192,9 +224,13 @@ def big_ntt(x: torch.Tensor, tw: torch.Tensor, field,
         build.check_cuda(t, name=name)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    tab, passes = table if table is not None else twiddle_table(tw, field,
+                                                                 n)
     y = torch.empty_like(x)
-    KERNEL_NTT.launch("ms_big_ntt", x.data_ptr(), y.data_ptr(), tw.data_ptr(),
-                      build.ptr_or_null(scale_first).value,
+    tmp = torch.empty_like(x) if passes > 1 else None
+    KERNEL_NTT.launch("ms_big_ntt", x.data_ptr(), y.data_ptr(),
+                      build.ptr_or_null(tmp).value, tab.data_ptr(),
+                      tab.shape[1], build.ptr_or_null(scale_first).value,
                       build.ptr_or_null(scale_last).value, n,
                       field.mod_desc, L)
     return y

@@ -11,12 +11,15 @@ of chip_smoke.py's paths.
     git show <commit>:ministark_tpu_torch/csrc/sha256.cu > DIR/sha256.cu
     git show <commit>:ministark_tpu_torch/csrc/deep.cu > DIR/deep.cu
     git show <commit>:ministark_tpu_torch/csrc/goldilocks.cuh > DIR/goldilocks.cuh
+    git show <commit>:ministark_tpu_torch/csrc/bigfield.cu > DIR/bigfield.cu
+    git show <commit>:ministark_tpu_torch/csrc/bigfield.cuh > DIR/bigfield.cuh
     git archive <commit> | tar -x -C DIR/parent
     python3 scripts/ab_kernels.py DIR [--reps N] [--turns N]
                                       [--paths F,B,W,L,R,H,S,D]
                                       [--inv-variants] [--rpo-sweep]
                                       [--old-tree DIR/parent]
                                       [--ood] [--coin] [--ood-variants]
+                                      [--big]
 
 Builds each of the sources found in DIR with the port's nvcc flags into
 DIR, its includes looked up in DIR before csrc/ (so an old inv.cu takes
@@ -80,6 +83,14 @@ the staged design of scripts/ood_staged.cu (a block stages the weights of
 a tile of points in shared memory once for all its groups, a group a
 warp) at 2, 4 and 8 pairs a group, in turns, at the same shapes.
 
+``--big`` (with an old bigfield.cu and its bigfield.cuh in DIR) times
+the BIG path's big_ntt on each of its eight 2^18-point transforms and
+big_mul on 2^18 pairs of each field against the old kernels, in turns,
+by events and by the device time alone, and prints ptxas's registers and
+spills of both sources' kernels.  big_mul reads copies of its inputs in
+turn that together take four times the card's L2
+(``chip_smoke.l2_copies``), so that its inputs come from device memory.
+
 ``--inv-variants`` also builds csrc/inv.cu with one entry point for each
 kernel A variant (the group size K, the group kept in registers or read
 again, T threads a block, the PTX carry-chain product with the prefix
@@ -107,7 +118,8 @@ PROTOS = {"ntt": ("ms_col_ntt", "ms_col_ntt_stage"),
           "inv": ("ms_inv_fp", "ms_inv_ext3"),
           "rpo256": ("ms_rpo_hash_rows", "ms_rpo_merge", "ms_rpo_grind"),
           "sha256": ("ms_hash_rows", "ms_merge"),
-          "deep": ("ms_deep", "ms_deep_ext3")}
+          "deep": ("ms_deep", "ms_deep_ext3"),
+          "bigfield": ("ms_big_mul", "ms_big_ntt")}
 
 # the old tree's generated evaluators: the sources of each term group and
 # the Pow exponents of its scalar table, in slot order
@@ -165,6 +177,22 @@ def build_old(old_dir):
     return libs
 
 
+def ptxas_lines(p, src):
+    """The registers and spills of each kernel from a running nvcc
+    -Xptxas -v (`p`, from _nvcc)."""
+    _, err = p.communicate(timeout=900)
+    if p.returncode:
+        raise RuntimeError(f"building {src} failed:\n{err}")
+    lines, kernel = [], None
+    for line in err.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+        elif kernel and ("registers" in line or "spill" in line):
+            lines.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
+    return lines
+
+
 # kernel A variants: (K, keep, T, product) for Fp and for Fq3.  The
 # products: "cc" the kernel's (PTX carry chains, the prefix products and
 # the chain lazy), "cc_eager" the same with every product canonical,
@@ -220,17 +248,7 @@ def build_inv_variants(out_dir):
     with open(src, "w") as f:
         f.write("\n".join(lines) + "\n")
     out = os.path.join(work, "inv_variants.so")
-    p = _nvcc(src, out, build.CSRC, "-Xptxas", "-v")
-    _, err = p.communicate(timeout=900)
-    if p.returncode:
-        raise RuntimeError(f"building the kernel A variants failed:\n{err}")
-    report, kernel = [], None
-    for line in err.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            kernel = m.group(1)
-        elif kernel and ("registers" in line or "spill" in line):
-            report.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
+    report = ptxas_lines(_nvcc(src, out, build.CSRC, "-Xptxas", "-v"), src)
     lib = ctypes.CDLL(out)
     for field, vs in (("fp", INV_FP_VARIANTS), ("ext3", INV_EXT3_VARIANTS)):
         for v in vs:
@@ -1194,6 +1212,127 @@ def rpo_sweep(old_merge, new_merge, old_hash, new_hash, old_grind, new_grind,
                     torch.cat(old_tree(level)), m)
 
 
+def big_ab(args, old_dir, old, dev, results):
+    """The BIG path's kernels against the parent's bigfield.cu (DIR), in
+    turns (old, new, new, old; --turns rounds): big_ntt on each of the eight
+    2^18-point transforms (Fp128 and Fp252; forward and inverse; plain and
+    over the coset of the field's generator) and big_mul on 2^18 pairs of
+    each field (over copies of its inputs read in turn, four times the
+    L2), by CUDA events over --reps launches and by the device time alone
+    (torch.profiler); ptxas's registers and spills of both sources
+    first."""
+    import itertools
+    import time
+
+    import torch
+
+    import chip_smoke
+    from ministark_tpu_torch.fields.bigvec import (BigDomain, Fp128Vec,
+                                                   Fp252Vec)
+    from ministark_tpu_torch.ops import bigfield as kbig
+    from ministark_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    procs = {}
+    for k, (name, src, inc) in enumerate((
+            ("old", os.path.join(old_dir, "bigfield.cu"), old_dir),
+            ("new", os.path.join(build.CSRC, "bigfield.cu"), build.CSRC))):
+        out = os.path.join(old_dir, f"ptxas_{k}.so")
+        procs[name] = (src, _nvcc(src, out, inc, "-Xptxas", "-v"))
+    for name, (src, p) in procs.items():
+        lines = ptxas_lines(p, src)
+        print(f"ptxas {name} bigfield.cu (built within "
+              f"{time.perf_counter() - t0:.1f} s):", flush=True)
+        print("\n".join(f"  {line}" for line in lines), flush=True)
+    lib = old["bigfield"]
+    stream = build.current_stream
+    n = 1 << chip_smoke.BIG_LOG_N
+    reps = args.reps or 20
+
+    def old_ntt(x, tw, first, last, f):
+        y = torch.empty_like(x)
+        rc = lib.ms_big_ntt(
+            build.ptr(x), build.ptr(y), build.ptr(tw),
+            build.ptr_or_null(first), build.ptr_or_null(last),
+            build.i64(n), ctypes.c_char_p(f.mod_desc), build.i64(f.L64),
+            ctypes.c_void_p(stream()))
+        assert rc == 0, rc
+        return y
+
+    def old_mul(a, b, f):
+        out = torch.empty_like(a)
+        rc = lib.ms_big_mul(
+            build.ptr(a), build.ptr(b), build.ptr(out), build.i64(n),
+            build.i64(1), ctypes.c_char_p(f.mod_desc), build.i64(f.L64),
+            ctypes.c_void_p(stream()))
+        assert rc == 0, rc
+        return out
+
+    def turns(fns):
+        """Both versions in order and back (old, new, new, old), --turns
+        rounds."""
+        order = list(fns)
+        events = {v: [0.0] * args.turns for v in fns}
+        device = {v: [0.0] * args.turns for v in fns}
+        for t in range(args.turns):
+            for v in order + order[::-1]:
+                events[v][t] += chip_smoke.time_ms(torch, fns[v], reps) / 2
+                d = chip_smoke.device_only_ms(torch, fns[v], reps)
+                device[v][t] += (d or float("nan")) / 2
+        return events, device
+
+    def spread(xs):
+        return f"{sum(xs) / len(xs):.4f} [{min(xs):.4f}-{max(xs):.4f}]"
+
+    rows = []
+    for f in (Fp128Vec, Fp252Vec):
+        x = f.pack(chip_smoke.big_values(f, n, f.L64), dev)
+        y = f.pack(chip_smoke.big_values(f, n, f.L64 + 1), dev)
+        for offset in (1, f.generator):
+            dom = BigDomain(f, n, offset)
+            for inverse in (False, True):
+                tw, first, last = dom._tables(inverse, str(dev))
+                table = dom._kernel_table(inverse, str(dev))
+                args_ = (x, tw, first, last, f)
+                fns = {"old": lambda a=args_: old_ntt(*a),
+                       "new": lambda a=args_, t=table: kbig.big_ntt(
+                           a[0], a[1], a[4], a[2], a[3], t)}
+                rows.append((f"big_ntt {f.name} "
+                             f"{'ifft' if inverse else 'fft'} "
+                             f"{'coset' if offset != 1 else 'plain'}", fns))
+        # each version reads the copies in turn, from the first (compared)
+        sets = [(x, y)] + [(x.clone(), y.clone()) for _ in range(
+            chip_smoke.l2_copies(torch, 3 * x.nbytes) - 1)]
+        fns = {}
+        for v, mul in (("old", old_mul), ("new", kbig.big_mul)):
+            it = itertools.cycle(sets)
+            fns[v] = lambda it=it, mul=mul, f=f: mul(*next(it), f)
+        rows.append((f"big_mul {f.name}", fns))
+        for name, fns in rows[-5:]:
+            want = fns["old"]()
+            for v, fn in fns.items():
+                if not torch.equal(fn(), want):
+                    raise SystemExit(f"ab_kernels: {name}: {v} and old "
+                                     f"differ")
+            events, device = turns(fns)
+            res = results.setdefault("big", {})[name] = {}
+            for v in fns:
+                res[f"{v}_ms"] = events[v]
+                res[f"{v}_device_only_ms"] = device[v]
+                print(f"{name}: {v} {spread(events[v])} ms, device only "
+                      f"{spread(device[v])} ms", flush=True)
+        del x, y, sets
+        torch.cuda.empty_cache()
+    big = results["big"]
+    for kernel in ("big_ntt", "big_mul"):
+        rows_k = [r for name, r in big.items() if name.startswith(kernel)]
+        for key in rows_k[0]:
+            if all(key in r for r in rows_k):
+                total = [sum(r[key][t] for r in rows_k)
+                         for t in range(args.turns)]
+                print(f"{kernel} summed, {key}: {spread(total)}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("old_dir")
@@ -1212,6 +1351,9 @@ def main() -> int:
                     help="kernel F's OOD sums against scripts/ood_grouped.cu")
     ap.add_argument("--coin", action="store_true",
                     help="the coin steps against scripts/coin_single.cu")
+    ap.add_argument("--big", action="store_true",
+                    help="the BIG path's big_ntt and big_mul against an old "
+                         "bigfield.cu (with its bigfield.cuh) in DIR")
     ap.add_argument("--old-tree", default=None,
                     help="a whole older tree (git archive): kernel E's old "
                          "generated sources come from its ops/eval.py")
@@ -1240,8 +1382,9 @@ def main() -> int:
     old = build_old(old_dir)
     from ministark_tpu_torch.ops import sha256 as ksha
 
-    for k in (kntt.KERNEL, ktr.KERNEL, kinv.KERNEL, ksha.KERNEL):
-        k.build()
+    if not args.big or set(old) - {"bigfield"}:
+        for k in (kntt.KERNEL, ktr.KERNEL, kinv.KERNEL, ksha.KERNEL):
+            k.build()
     if args.inv_variants:
         variants, report = build_inv_variants(old_dir)
         print("\n".join(report), flush=True)
@@ -1532,6 +1675,8 @@ def main() -> int:
         ood_variants(paths, old_dir, rand, record_variants, dev)
     if args.ood_staged:
         ood_staged(paths, old_dir, rand, record_variants, dev)
+    if args.big:
+        big_ab(args, old_dir, old, dev, results)
 
     print(json.dumps({"card": card, "ab": results}), flush=True)
     return 0

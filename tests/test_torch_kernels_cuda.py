@@ -500,37 +500,53 @@ def test_kernel_matches_plain_on_card(dev, kernel):
                         plain(s.cpu(), level[1].cpu(), 3, 8)):
             _same(torch, g, w)
     elif kernel in ("big_mul", "big_ntt"):
-        from ministark_tpu_torch.fields.bigvec import (BigDomain, Fp128Vec,
-                                                       Fp252Vec)
+        from ministark_tpu_torch.fields.bigvec import (BigDomain, BigField,
+                                                       Fp128Vec, Fp252Vec)
         from ministark_tpu_torch.ops import bigfield as kbig
 
         rng = np.random.default_rng(60)
-        for f in (Fp128Vec, Fp252Vec):
-            def vals(n):
-                nb = (f.p.bit_length() + 7) // 8 + 8
-                v = [int.from_bytes(rng.bytes(nb), "little") % f.p
-                     for _ in range(n)]
-                v[:3] = [0, 1, f.p - 1][:n]
-                return v
+
+        def vals(f, n):
+            nb = (f.p.bit_length() + 7) // 8 + 8
+            raw = rng.bytes(nb * n)
+            v = [int.from_bytes(raw[i:i + nb], "little") % f.p
+                 for i in range(0, nb * n, nb)]
+            v[:3] = [0, 1, f.p - 1][:n]
+            return v
+
+        # the plain versions run on the card too (2^18 points on the host
+        # would take minutes); the named primes take the specialised
+        # product, the others the generic one
+        others = [BigField("M127", 2**127 - 1, 3, 1),
+                  BigField("P255m19", 2**255 - 19, 2, 2)]
+        for f in [Fp128Vec, Fp252Vec] + others:
             if kernel == "big_mul":
-                for n in (1, 3, 1000, 4099):
-                    a, b = f.pack(vals(n), "cpu"), f.pack(vals(n), "cpu")
-                    _same(torch, kbig.big_mul(a.to(dev), b.to(dev), f),
+                for n in (1, 2, 3, 32, 1000, 2048, 4099, 1 << 15, 1 << 18):
+                    a = f.pack(vals(f, n), dev)
+                    b = f.pack(vals(f, n), dev)
+                    _same(torch, kbig.big_mul(a, b, f),
                           kbig.big_mul_plain(a, b, f))
-                    _same(torch, kbig.big_mul(a.to(dev), b[:, :1].to(dev), f),
+                    _same(torch, kbig.big_mul(a, b[:, :1], f),
                           kbig.big_mul_plain(a, b[:, :1], f))
+                    # limb planes 8 bytes off a 16-byte boundary: one
+                    # element a thread
+                    buf = torch.empty(f.L64 * n + 1, dtype=torch.int64,
+                                      device=dev)
+                    odd = buf[1:].view(f.L64, n)
+                    odd.copy_(a)
+                    _same(torch, kbig.big_mul(odd, b, f),
+                          kbig.big_mul_plain(a, b, f))
                 continue
-            # every stage in the tile launch (n <= 1024), and beyond it
-            for n, off in ((1, 1), (2, 7), (32, 7), (1024, 1), (1 << 13, 7)):
-                dom = BigDomain(f, n, off)
-                x = f.pack(vals(n), "cpu")
-                for inverse in (False, True):
-                    t = [None if v is None else v.to(dev)
-                         for v in dom._tables(inverse, "cpu")]
-                    tc = dom._tables(inverse, "cpu")
-                    _same(torch, kbig.big_ntt(x.to(dev), t[0], f, t[1], t[2]),
-                          kbig.big_ntt_plain(x, *tc[:1], f, *tc[1:]))
-                _same(torch, dom.ifft(dom.fft(x.to(dev))), x)
+            sizes = (1, 2, 4, 32, 1 << 9, 1 << 11, 1 << 15, 1 << 18)
+            for n in sizes[:f.two_adicity + 1]:
+                x = f.pack(vals(f, n), dev)
+                for off in (1, f.generator):
+                    dom = BigDomain(f, n, off)
+                    for inverse in (False, True):
+                        t = dom._tables(inverse, str(dev))
+                        _same(torch, kbig.big_ntt(x, *t[:1], f, *t[1:]),
+                              kbig.big_ntt_plain(x, *t[:1], f, *t[1:]))
+                    _same(torch, dom.ifft(dom.fft(x)), x)
     assert build.KERNELS[kernel].launches > before
 
 
