@@ -167,6 +167,8 @@ def test_comp_commit_program_ext_matches(monkeypatch, no_persistent_cache):
         assert fd.to_ints(e[k]) == fd.to_ints(lde_arrays[k])
 
 
+# 1099 s: XLA:CPU compiling the JAX package's interpret-mode kernel (8 CPUs).
+@pytest.mark.slow
 def test_fused_commit_matches_host(monkeypatch, no_persistent_cache):
     rng = np.random.default_rng(6)
     import jax.numpy as jnp

@@ -4,6 +4,7 @@ SHA lanes / NTT kernels use (tests/test_ntt_kernels.py)."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from ministark_tpu import hash_rpo
 from ministark_tpu.fields import Fp, P
@@ -78,6 +79,8 @@ def test_hash_columns_lanes_matches_host():
             assert got == want, f"ncols={ncols} row={r}"
 
 
+# 394 s: XLA:CPU compiling the JAX package's interpret-mode kernel (8 CPUs).
+@pytest.mark.slow
 def test_commit_matrix_rpo_kernel_dispatch(monkeypatch):
     """merkle.commit_matrix_fp with the RPO hash produces the same tree
     through the Pallas kernel path (MINISTARK_TPU_RPO=interpret) as through
