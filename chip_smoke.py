@@ -23,8 +23,9 @@ Phases, any failure exits non-zero:
   3. run each kernel against its plain PyTorch version on the card, once
      for each path that launches it, at that path's shapes: the nine fib
      kernels at the 2^24-value fib prove's (kernel F's OOD sums,
-     ``ood_sums``, at the prove's pairs), the eleven of the brainfuck
-     path (the five Fq3 kernels, ``ood_sums_ext3`` among them, and the
+     ``ood_sums``, at the prove's pairs), the twelve of the brainfuck
+     path (the six Fq3 kernels, ``ood_sums_ext3`` and the extension
+     columns' ``affine_scan_ext3`` over the trace's rows among them, and the
      ntt, transpose, sha256, inv, SHA-256 grind and SHA-256 tree tops it
      shares with fib) at the
      2^20-row brainfuck prove's and again at hello_world's (each SHA-256
@@ -35,7 +36,7 @@ Phases, any failure exits non-zero:
      fib prove's shapes; the RPO permutation's row hashes, merges and FRI
      rows; the RPO grind on one batch; a whole Merkle tree of its 2^23
      leaves, the merges and the tops launch, compared on a 2^18-leaf
-     tree), hello_world RPO's ten (its seven shared ones, the RPO
+     tree), hello_world RPO's eleven (its eight shared ones, the RPO
      permutation, the grind, a whole tree of its 2^15 leaves) at
      hello_world's shapes, and the LDE's kernel B and transposes on both
      passes of its 2^27- and the first of its 2^29-point transform, and
@@ -78,9 +79,10 @@ Phases, any failure exits non-zero:
   6. prove ``programs/fibonacci.bf`` with its count cut from eleven to ten
      numbers (2^20 rows) with the 96-bit options (19 queries, blowup 16,
      grind 20, fold 16, remainder 16), cold then warm, after timing the VM
-     on the host;
+     on the host, then time the extension trace commitment's parts apart
+     (the columns' recurrences, the scan, the LDE, the tree);
   7. prove ``programs/hello_world.bf`` with the same options, cold then
-     warm (bench.py's latency line);
+     warm (bench.py's latency line), and time the same parts;
   8. prove the fully algebraic fib at 2^24 values with bench.py's options,
      cold then warm;
   9. prove hello_world with RPO-256 trees and coin, 96-bit options, cold
@@ -156,12 +158,12 @@ FIB_PATH = ("inv", "ntt", "transpose", "sha256", "eval", "deep", "ood_sums",
             "sha256_grind", "sha256_tree", "coin_sha")
 BF_PATH = ("inv", "ntt", "transpose", "sha256", "inv_ext3", "sha256_ext3",
            "eval_ext3", "deep_ext3", "ood_sums_ext3", "sha256_grind",
-           "sha256_tree", "coin_sha")
+           "sha256_tree", "coin_sha", "affine_scan_ext3")
 FIB_RPO_PATH = ("inv", "ntt", "transpose", "eval", "deep", "ood_sums",
                 "rpo256", "rpo256_grind", "rpo256_tree", "coin_rpo")
 BF_RPO_PATH = ("inv", "ntt", "transpose", "inv_ext3", "eval_ext3",
                "deep_ext3", "ood_sums_ext3", "rpo256", "rpo256_grind",
-               "rpo256_tree", "coin_rpo")
+               "rpo256_tree", "coin_rpo", "affine_scan_ext3")
 LDE_PATH = ("ntt", "transpose", "ntt_stage")
 RESCUE_PATH = ("inv", "ntt", "transpose", "sha256", "eval", "deep",
                "ood_sums", "sha256_grind", "sha256_tree", "coin_sha")
@@ -203,6 +205,9 @@ OPS_MUL3 = 6 * OPS_MUL + 17 * OPS_ADD       # Karatsuba with u^3 = 2
 # four 32x32 -> 64 multiply-adds in a carry chain (8 instruction slots) and
 # five carry adds into the words above
 OPS_MAC = 13
+# An affine scan needs no more work than the sequential recurrence: one
+# Fq3 product and one Fq3 add an element.
+OPS_SCAN = OPS_MUL3 + 3 * OPS_ADD
 # A batch of inverses needs no more work than Montgomery's trick: three
 # products per element and one Fermat chain a^(p-2) for the whole batch
 # (an addition chain of about 75 products), whatever a kernel does.
@@ -932,6 +937,20 @@ def compare_bf_kernels(ck: Checker, bf_air_big, path, names):
                  [int(ocols[c].ndim == 2) for _j, c in pairs], npts, True,
                  len({j for j, c in pairs if ocols[c].ndim == 2})),
              reps=50 if small else 3, plain_reps=1, launch_cost=small)
+
+    # the extension columns' affine scan over the trace's rows: nine Fq3
+    # columns, brainfuck's inclusive flags
+    from ministark_tpu_torch import scan as tscan
+    from ministark_tpu_torch.models.brainfuck.trace import _INCLUSIVE
+
+    n_rows = bf_air_big.trace_len
+    sa, sb, sinit = rand(ne, 3, n_rows), rand(ne, 3, n_rows), rand(ne, 3)
+    ck.check("affine_scan_ext3", path,
+             part(lambda: tscan.affine_scan_ext3(sa, sb, sinit, _INCLUSIVE),
+                  lambda: tscan.affine_scan_ext3_plain(sa, sb, sinit,
+                                                       _INCLUSIVE)),
+             3 * 24 * ne * n_rows, ne * n_rows * OPS_SCAN,
+             reps=50 if small else 5, plain_reps=1)
 
 
 def rpo_part(ck, make_input, hash_fn, plain_fn, sample=True):
@@ -1693,6 +1712,37 @@ def periodic_ms(torch, claim, opts, trace) -> float:
                                    for p in plan.periodic], 3)
 
 
+def ext_commit_split(torch, claim, opts, trace) -> dict:
+    """Device ms of the extension trace commitment's parts at a brainfuck
+    prove's shapes, each the mean of three runs after one: the nine
+    columns' recurrences (a, b, init) in plain torch, the scan (the
+    kernel's three launches), the LDE (interpolate, evaluate) and the
+    tree; the challenges drawn from the claim's coin before any
+    commitment."""
+    from ministark_tpu_torch import merkle
+    from ministark_tpu_torch.air import Challenges
+    from ministark_tpu_torch.matrix import MatrixExt3
+    from ministark_tpu_torch.models.brainfuck import trace as btrace
+    from ministark_tpu_torch.scan import affine_scan_ext3
+
+    base = trace.base_columns()
+    air = claim.build_air(base.num_rows, opts)
+    challenges = Challenges(claim.gen_public_coin(air).draw_multiple(
+        air.num_challenges()))
+    maps = btrace.extension_maps(base.values, challenges)
+    ext = MatrixExt3(affine_scan_ext3(*maps, btrace._INCLUSIVE))
+    lde = ext.interpolate(air.trace_domain()).evaluate(air.lde_domain())
+    return {
+        "build_ms": time_ms(torch, lambda: btrace.extension_maps(
+            base.values, challenges), 3),
+        "scan_ms": time_ms(torch, lambda: affine_scan_ext3(
+            *maps, btrace._INCLUSIVE), 3),
+        "lde_ms": time_ms(torch, lambda: ext.interpolate(
+            air.trace_domain()).evaluate(air.lde_domain()), 3),
+        "tree_ms": time_ms(torch, lambda: merkle.commit_matrix_ext3(
+            lde.values, claim.merkle_hash), 3)}
+
+
 def lde_2e29(torch, build, ck):
     """A one-column 2^29-point coset LDE (blowup 4 over a 2^27-row trace
     domain) through Matrix.interpolate/evaluate; its second column pass
@@ -2059,7 +2109,7 @@ def build_kernels():
     from ministark_tpu_torch.models.fib import FibAirConfig
     from ministark_tpu_torch.models.rescue import RescueAirConfig
     from ministark_tpu_torch.ops import (bigfield, build, coin,  # noqa: F401
-                                         deep, eval, inv, ntt, rpo256,
+                                         deep, eval, inv, ntt, rpo256, scan,
                                          sha256, transpose)
 
     t0 = time.perf_counter()
@@ -2260,6 +2310,7 @@ def main() -> int:
           f"{info['rows']} rows, output {output!r}", flush=True)
     proof, bf = prove_timed(torch, build, claim, opts, trace, BF_PATH,
                             "the 2^20-row brainfuck prove")
+    bf["ext_commit_split"] = ext_commit_split(torch, claim, opts, trace)
     data = proof.to_bytes(Fq3)
     bf["verify_s"] = verify_and_tamper(claim, data, Fp, Fq3, 96,
                                        "brainfuck 2^20")
@@ -2273,6 +2324,7 @@ def main() -> int:
     del info["output"]
     proof, hello = prove_timed(torch, build, claim, opts, trace, BF_PATH,
                                "the hello_world prove")
+    hello["ext_commit_split"] = ext_commit_split(torch, claim, opts, trace)
     one_process["hello"], one_claims["hello"] = proof.to_bytes(Fq3), claim
     hello["verify_s"] = verify_and_tamper(claim, one_process["hello"], Fp,
                                           Fq3, 96, "hello_world")

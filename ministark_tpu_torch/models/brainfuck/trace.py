@@ -85,6 +85,12 @@ _INCLUSIVE = [False, False, False, False, False, True, True, True, True]
 def build_extension_columns(base: torch.Tensor, challenges) -> torch.Tensor:
     """The 9 extension columns, global order 17..25, as a (9, 3, n) Fq3
     tensor: one (a, b, init) recurrence per column, then one scan."""
+    return affine_scan_ext3(*extension_maps(base, challenges), _INCLUSIVE)
+
+
+def extension_maps(base: torch.Tensor, challenges):
+    """The 9 extension columns' recurrences s' = a s + b from init, in
+    plain torch: a, b (9, 3, n) and init (9, 3)."""
     n, dev = base.shape[1], base.device
     instr_init, mem_init = perm_initials()
 
@@ -146,4 +152,4 @@ def build_extension_columns(base: torch.Tensor, challenges) -> torch.Tensor:
     a = torch.stack([x.expand(3, n) for x, _, _ in ab])
     b = torch.stack([y.expand(3, n) for _, y, _ in ab])
     init = torch.cat([fd.ext3_scalar(s, dev).T for _, _, s in ab])
-    return affine_scan_ext3(a, b, init, _INCLUSIVE)
+    return a, b, init

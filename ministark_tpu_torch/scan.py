@@ -3,14 +3,16 @@
 
 Running permutation products and evaluation sums (BrainSTARK extension
 columns, examples/brainfuck/trace.rs:108-289) are affine recurrences
-s' = a*s + b.  On the device they become log-depth Hillis-Steele doubling
+s' = a*s + b.  As tensor code they become log-depth Hillis-Steele doubling
 passes: with (A_i, B_i) the composition of f_{i-2^k+1..i}, one pass gives
 compositions of twice the span,
 
     (A, B)_i <- (A_i * A_{i-2^k},  A_i * B_{i-2^k} + B_i).
 
-The JAX package runs this as XLA code with no Pallas kernel, so here it is
-plain PyTorch; every column of a batch is scanned in the same passes.
+The JAX package runs this as XLA code with no Pallas kernel.  Here CUDA
+tensors launch a hand-written kernel (``ops/scan.py``, csrc/scan.cu: one
+pass that reads a and b once); CPU tensors take the doubling in plain
+PyTorch, every column of a batch scanned in the same passes.
 ``affine_scan_ext3_sequential`` is the test oracle.
 """
 
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from .fields import device as fd
+from .ops import scan as kscan
 
 
 def _shift_right(x: torch.Tensor, k: int, fill: int) -> torch.Tensor:
@@ -37,7 +40,16 @@ def affine_scan_ext3(a: torch.Tensor, b: torch.Tensor, init: torch.Tensor,
     exclusive:  out[0] = init, out[i] = state BEFORE step i
 
     a, b: (B, 3, n) Fq3 batches; init: (B, 3); inclusive: a bool, or B
-    bools, one per batch entry.  Returns (B, 3, n)."""
+    bools, one per batch entry.  Returns (B, 3, n).  CUDA tensors launch
+    the kernel; CPU tensors take the plain version."""
+    if a.is_cuda:
+        return kscan.affine_scan_ext3(a, b, init, inclusive)
+    return affine_scan_ext3_plain(a, b, init, inclusive)
+
+
+def affine_scan_ext3_plain(a: torch.Tensor, b: torch.Tensor,
+                           init: torch.Tensor, inclusive) -> torch.Tensor:
+    """``affine_scan_ext3`` as log2(n) Hillis-Steele doubling passes."""
     n = a.shape[-1]
     A, Bv = a, b
     k = 1

@@ -19,7 +19,7 @@ of chip_smoke.py's paths.
                                       [--inv-variants] [--rpo-sweep]
                                       [--old-tree DIR/parent]
                                       [--ood] [--coin] [--ood-variants]
-                                      [--big]
+                                      [--big] [--scan]
 
 Builds each of the sources found in DIR with the port's nvcc flags into
 DIR, its includes looked up in DIR before csrc/ (so an old inv.cu takes
@@ -90,6 +90,11 @@ by events and by the device time alone, and prints ptxas's registers and
 spills of both sources' kernels.  big_mul reads copies of its inputs in
 turn that together take four times the card's L2
 (``chip_smoke.l2_copies``), so that its inputs come from device memory.
+
+``--scan`` times the extension columns' affine scan (csrc/scan.cu, the
+"new" version) against its plain version ("old") in turns at B's shape
+(nine Fq3 columns of 2^20 rows) and W's (2^11 rows); the kernel has no
+older version.
 
 ``--inv-variants`` also builds csrc/inv.cu with one entry point for each
 kernel A variant (the group size K, the group kept in registers or read
@@ -1333,6 +1338,28 @@ def big_ab(args, old_dir, old, dev, results):
                 print(f"{kernel} summed, {key}: {spread(total)}", flush=True)
 
 
+def scan_ab(paths, rand, record):
+    """The extension columns' affine scan (csrc/scan.cu) against its plain
+    version (scan.py ``affine_scan_ext3_plain``), in turns, at B's shape
+    (nine columns of 2^20 rows) and W's (2^11)."""
+    import torch
+
+    from ministark_tpu_torch import scan as tscan
+    from ministark_tpu_torch.models.brainfuck.trace import _INCLUSIVE
+
+    for path, n in (("B", 1 << 20), ("W", 1 << 11)):
+        if path not in paths:
+            continue
+        a, b, init = rand(9, 3, n), rand(9, 3, n), rand(9, 3)
+        record("affine_scan_ext3", path, [(
+            {"old": lambda: tscan.affine_scan_ext3_plain(a, b, init,
+                                                         _INCLUSIVE),
+             "new": lambda: tscan.affine_scan_ext3(a, b, init, _INCLUSIVE)},
+            9 * n)])
+        del a, b, init
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("old_dir")
@@ -1354,6 +1381,9 @@ def main() -> int:
     ap.add_argument("--big", action="store_true",
                     help="the BIG path's big_ntt and big_mul against an old "
                          "bigfield.cu (with its bigfield.cuh) in DIR")
+    ap.add_argument("--scan", action="store_true",
+                    help="the extension columns' affine scan against its "
+                         "plain version")
     ap.add_argument("--old-tree", default=None,
                     help="a whole older tree (git archive): kernel E's old "
                          "generated sources come from its ops/eval.py")
@@ -1382,7 +1412,7 @@ def main() -> int:
     old = build_old(old_dir)
     from ministark_tpu_torch.ops import sha256 as ksha
 
-    if not args.big or set(old) - {"bigfield"}:
+    if not (args.big or args.scan) or set(old) - {"bigfield"}:
         for k in (kntt.KERNEL, ktr.KERNEL, kinv.KERNEL, ksha.KERNEL):
             k.build()
     if args.inv_variants:
@@ -1677,6 +1707,8 @@ def main() -> int:
         ood_staged(paths, old_dir, rand, record_variants, dev)
     if args.big:
         big_ab(args, old_dir, old, dev, results)
+    if args.scan:
+        scan_ab(paths, rand, record)
 
     print(json.dumps({"card": card, "ab": results}), flush=True)
     return 0

@@ -25,7 +25,7 @@ KERNELS = ["inv", "ntt", "transpose", "sha256", "eval", "deep", "inv_ext3",
            "sha256_ext3", "eval_ext3", "deep_ext3", "ntt_stage", "rpo256",
            "rpo256_grind", "rpo256_tree", "sha256_grind", "sha256_tree",
            "ood_sums", "ood_sums_ext3", "coin_sha", "coin_rpo", "big_mul",
-           "big_ntt"]
+           "big_ntt", "affine_scan_ext3"]
 
 
 @pytest.fixture
@@ -547,6 +547,26 @@ def test_kernel_matches_plain_on_card(dev, kernel):
                         _same(torch, kbig.big_ntt(x, *t[:1], f, *t[1:]),
                               kbig.big_ntt_plain(x, *t[:1], f, *t[1:]))
                     _same(torch, dom.ifft(dom.fft(x)), x)
+    elif kernel == "affine_scan_ext3":
+        from ministark_tpu_torch import scan
+        from ministark_tpu_torch.models.brainfuck.trace import _INCLUSIVE
+
+        # brainfuck's nine columns at fibonacci.bf's 2^20 rows (512 tiles
+        # of 2048 a column: two rounds of the tiles' scan), 2^15 and
+        # hello_world's 2^11; ragged lengths (one element, a tile less or
+        # more one, three tiles and a part), a bool for all
+        for B, n, inc in ((9, 1 << 20, _INCLUSIVE), (9, 1 << 15, _INCLUSIVE),
+                          (9, 1 << 11, _INCLUSIVE),
+                          (9, 3 * 2048 + 77, _INCLUSIVE), (1, 1, True),
+                          (2, 2047, [False, True]), (3, 2049, False)):
+            a, b = _rand((B, 3, n), n).to(dev), _rand((B, 3, n), n + 1).to(dev)
+            a[..., 0, ::5] = 1       # a = 1 and b = 0: the identity map
+            a[..., 1:, ::5] = 0
+            b[..., ::5] = 0
+            a[..., 7::11] = 0        # a = 0: the state starts again at b
+            init = _rand((B, 3), B + n).to(dev)
+            _same(torch, scan.affine_scan_ext3(a, b, init, inc),
+                  scan.affine_scan_ext3_plain(a, b, init, inc))
     assert build.KERNELS[kernel].launches > before
 
 
